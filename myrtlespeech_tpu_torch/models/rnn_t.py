@@ -1,0 +1,155 @@
+"""RNN transducer for serving (port of ``models/rnn_t.py``).
+
+LSTM encoder with a stride-``r`` time reduction between its two stacks,
+embedding + LSTM prediction net, and the factored joint
+``act(f) @ W_f + act(g) @ W_g + b``.  ``encode``, ``predict_step``,
+``joint_project_f`` and ``joint_from_fp`` are separate methods because the
+greedy decoder drives them separately.  The training path (``predict`` over
+full label sequences, the full joint and the loss) is not ported yet.
+
+Parameter names and layouts follow Flax, so the JAX package's weights map
+one to one (``weights.py``): ``enc_rnn1.*``, ``enc_rnn2.*``,
+``embedding.embedding (V, E)``, ``pred_rnn.*``, ``joint_net.kernel
+(H_enc + H_pred, K)``, ``joint_net.bias``, ``joint_net.rest.Dense_{i}.*``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from myrtlespeech_tpu_torch.config import schema as S
+from myrtlespeech_tpu_torch.config.schema import RNNTConfig, RNNTJointNetConfig
+from myrtlespeech_tpu_torch.models.activations import apply_activation
+from myrtlespeech_tpu_torch.models.fully_connected import FullyConnected
+from myrtlespeech_tpu_torch.models.rnn import RNN
+from myrtlespeech_tpu_torch.ops import masking
+from myrtlespeech_tpu_torch.ops.rnn import LSTMState
+
+
+def time_reduce(x: torch.Tensor, lengths: torch.Tensor, factor: int):
+    """Stack ``factor`` consecutive frames: ``(B, T, F) -> (B, ceil(T/r), F*r)``."""
+    if factor == 1:
+        return x, lengths
+    B, T, F = x.shape
+    pad = (-T) % factor
+    x = nn.functional.pad(x, (0, 0, 0, pad))
+    x = x.reshape(B, (T + pad) // factor, F * factor)
+    return x, masking.time_reduction_out_lens(lengths, factor)
+
+
+class Embed(nn.Module):
+    """Embedding table ``embedding (V, E)`` (Flax ``nn.Embed``'s name)."""
+
+    def __init__(self, num: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num, features))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.embedding.to(self.dtype)[idx]
+
+
+class RNNTJoint(nn.Module):
+    """Factored joint: ``tail(act(f) @ W[:H_enc] + act(g) @ W[H_enc:] + b)``.
+
+    The first layer of the joint MLP is linear over ``concat(f, g)``, so it
+    splits exactly into an encoder side (computed once per utterance at
+    decode time) and a prediction side.  The parameter stays one
+    ``(H_enc + H_pred, K)`` kernel, as in the JAX package.
+    """
+
+    def __init__(self, cfg: RNNTJointNetConfig, vocab_size: int, h_enc: int,
+                 h_pred: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.h_enc = h_enc
+        self.dtype = dtype
+        c = cfg.fc
+        K = c.hidden_size if c.num_hidden_layers >= 1 else vocab_size
+        self.kernel = nn.Parameter(torch.empty(h_enc + h_pred, K))
+        self.bias = nn.Parameter(torch.zeros(K))
+        self.rest = None
+        if c.num_hidden_layers >= 1:
+            rest = S.replace(c, num_hidden_layers=c.num_hidden_layers - 1)
+            self.rest = FullyConnected(rest, K, vocab_size, dtype=dtype)
+
+    def project_f(self, f: torch.Tensor) -> torch.Tensor:
+        f = apply_activation(self.cfg.activation, f).to(self.dtype)
+        return f @ self.kernel.to(self.dtype)[:self.h_enc]
+
+    def project_g(self, g: torch.Tensor) -> torch.Tensor:
+        g = apply_activation(self.cfg.activation, g).to(self.dtype)
+        return g @ self.kernel.to(self.dtype)[self.h_enc:] \
+            + self.bias.to(self.dtype)
+
+    def from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        return self.tail(fp + self.project_g(g))
+
+    def tail(self, h: torch.Tensor) -> torch.Tensor:
+        """Activation and the remaining FC layers after the first layer."""
+        if self.rest is None:
+            return h
+        return self.rest(apply_activation(self.cfg.fc.activation, h))
+
+
+class RNNT(nn.Module):
+    def __init__(self, cfg: RNNTConfig, vocab_size: int, in_features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        enc = cfg.encoder
+        dirs1 = 2 if enc.rnn1.bidirectional else 1
+        self.enc_rnn1 = RNN(enc.rnn1, in_features, dtype)
+        reduced = enc.rnn1.hidden_size * dirs1 * enc.time_reduction_factor
+        if enc.rnn2 is not None:
+            self.enc_rnn2 = RNN(enc.rnn2, reduced, dtype)
+            h_enc = enc.rnn2.hidden_size * (2 if enc.rnn2.bidirectional else 1)
+        else:
+            self.enc_rnn2 = None
+            h_enc = reduced
+        pred = cfg.prediction
+        self.embedding = Embed(vocab_size, pred.embedding_dim, dtype)
+        self.pred_rnn = RNN(pred.rnn, pred.embedding_dim, dtype)
+        h_pred = pred.rnn.hidden_size * (2 if pred.rnn.bidirectional else 1)
+        self.joint_net = RNNTJoint(cfg.joint, vocab_size, h_enc, h_pred, dtype)
+
+    def encode(self, x: torch.Tensor, lengths: torch.Tensor):
+        """Acoustic encoder: ``(B, T, F) -> (B, T', H_enc)`` + lengths."""
+        y, lengths, _ = self.enc_rnn1(x, lengths)
+        y, lengths = time_reduce(y, lengths,
+                                 self.cfg.encoder.time_reduction_factor)
+        if self.enc_rnn2 is not None:
+            y, lengths, _ = self.enc_rnn2(y, lengths)
+        return y, lengths
+
+    def init_state(self, n: int, device) -> List[List[LSTMState]]:
+        """Zero prediction-net state for a batch of ``n``."""
+        c = self.cfg.prediction.rnn
+        dirs = 2 if c.bidirectional else 1
+        return [[LSTMState(h=torch.zeros((n, c.hidden_size), device=device),
+                           c=torch.zeros((n, c.hidden_size), device=device))
+                 for _ in range(dirs)] for _ in range(c.num_layers)]
+
+    def predict_step(self, token: torch.Tensor, state
+                     ) -> Tuple[torch.Tensor, List[List[LSTMState]]]:
+        """One prediction-net step: ``token (B,)`` (-1 = start: zero
+        embedding) and the per-layer state -> ``(g (B, H_pred), state)``."""
+        emb = self.embedding(torch.clamp(token, min=0))
+        emb = torch.where((token >= 0)[:, None], emb, 0.0).to(self.dtype)
+        ones = torch.ones_like(token)
+        g, _, new_state = self.pred_rnn(emb[:, None, :], ones,
+                                        initial_states=state)
+        return g[:, 0, :], new_state
+
+    def joint_project_f(self, f: torch.Tensor) -> torch.Tensor:
+        """Encoder-side joint projection (hoisted out of the decode loop)."""
+        return self.joint_net.project_f(f)
+
+    def joint_from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Joint logits from a pre-projected encoder row."""
+        return self.joint_net.from_fp(fp, g)
