@@ -6,8 +6,9 @@ runs time-major inside; parameters are fp32 with Flax's layout and names,
 the compute dtype.  Every LSTM layer goes through ``ops/rnn.py::lstm_scan``
 and so through K1 on the card.
 
-This slice serves only: dropout between layers is the identity at
-inference, and the other cells and the masked BatchNorm raise.
+Dropout between layers is the identity at inference; at train time a
+dropout above 0 raises ``NotImplementedError`` (not ported yet), as do the
+other cells and the masked BatchNorm.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ class RNN(nn.Module):
                     self.register_parameter(f"{name}_b", nn.Parameter(b))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False,
                 initial_states: Optional[List[List[rnn_ops.LSTMState]]] = None):
         """Run the stack.
 
@@ -68,6 +70,10 @@ class RNN(nn.Module):
         ``initial_states``.
         """
         c = self.cfg
+        if train and c.dropout > 0 and c.num_layers > 1:
+            raise NotImplementedError(
+                "dropout between RNN layers at train time is not ported "
+                "yet: ROADMAP.md Queue 1, slice 2 (train-time dropout)")
         dirs = 2 if c.bidirectional else 1
         y = x.transpose(0, 1)  # (T, B, F)
         final_states = []

@@ -1,11 +1,13 @@
-"""RNN transducer for serving (port of ``models/rnn_t.py``).
+"""RNN transducer (port of ``models/rnn_t.py``).
 
 LSTM encoder with a stride-``r`` time reduction between its two stacks,
 embedding + LSTM prediction net, and the factored joint
 ``act(f) @ W_f + act(g) @ W_g + b``.  ``encode``, ``predict_step``,
 ``joint_project_f`` and ``joint_from_fp`` are separate methods because the
-greedy decoder drives them separately.  The training path (``predict`` over
-full label sequences, the full joint and the loss) is not ported yet.
+greedy decoder drives them separately; ``predict`` (full label sequences),
+``joint`` (the full ``(B, T', U+1, V)`` logits) and ``forward`` are the
+training path.  Train-time dropout (between RNN layers, in the joint, or
+``embedding_dropout``) is not ported yet and raises when it is above 0.
 
 Parameter names and layouts follow Flax, so the JAX package's weights map
 one to one (``weights.py``): ``enc_rnn1.*``, ``enc_rnn2.*``,
@@ -77,6 +79,10 @@ class RNNTJoint(nn.Module):
             rest = S.replace(c, num_hidden_layers=c.num_hidden_layers - 1)
             self.rest = FullyConnected(rest, K, vocab_size, dtype=dtype)
 
+    def project(self, f: torch.Tensor, g: torch.Tensor):
+        """First-layer projections ``(fp, gp)``, the bias folded into ``gp``."""
+        return self.project_f(f), self.project_g(g)
+
     def project_f(self, f: torch.Tensor) -> torch.Tensor:
         f = apply_activation(self.cfg.activation, f).to(self.dtype)
         return f @ self.kernel.to(self.dtype)[:self.h_enc]
@@ -89,11 +95,23 @@ class RNNTJoint(nn.Module):
     def from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return self.tail(fp + self.project_g(g))
 
-    def tail(self, h: torch.Tensor) -> torch.Tensor:
+    def tail(self, h: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Activation and the remaining FC layers after the first layer."""
         if self.rest is None:
             return h
+        if train and self.cfg.fc.dropout > 0:
+            raise NotImplementedError(
+                "joint dropout at train time is not ported yet: ROADMAP.md "
+                "Queue 1, slice 2 (train-time dropout)")
         return self.rest(apply_activation(self.cfg.fc.activation, h))
+
+    def forward(self, f: torch.Tensor, g: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """``f (B, T, H_enc)``, ``g (B, U+1, H_pred)`` -> logits ``(B, T, U+1,
+        V)``.  Only the K-wide sum exists per lattice cell, never the
+        broadcast concat.  A decode step goes through :meth:`from_fp`."""
+        fp, gp = self.project(f, g)
+        return self.tail(fp[:, :, None, :] + gp[:, None, :, :], train)
 
 
 class RNNT(nn.Module):
@@ -118,14 +136,30 @@ class RNNT(nn.Module):
         h_pred = pred.rnn.hidden_size * (2 if pred.rnn.bidirectional else 1)
         self.joint_net = RNNTJoint(cfg.joint, vocab_size, h_enc, h_pred, dtype)
 
-    def encode(self, x: torch.Tensor, lengths: torch.Tensor):
+    def encode(self, x: torch.Tensor, lengths: torch.Tensor,
+               train: bool = False):
         """Acoustic encoder: ``(B, T, F) -> (B, T', H_enc)`` + lengths."""
-        y, lengths, _ = self.enc_rnn1(x, lengths)
+        y, lengths, _ = self.enc_rnn1(x, lengths, train)
         y, lengths = time_reduce(y, lengths,
                                  self.cfg.encoder.time_reduction_factor)
         if self.enc_rnn2 is not None:
-            y, lengths, _ = self.enc_rnn2(y, lengths)
+            y, lengths, _ = self.enc_rnn2(y, lengths, train)
         return y, lengths
+
+    def predict(self, labels: torch.Tensor, label_lens: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """Prediction net over full label sequences: ``labels (B, U) -> g
+        (B, U+1, H_pred)``, a zero SOS embedding first, lengths
+        ``label_lens + 1``."""
+        if train and self.cfg.prediction.embedding_dropout > 0:
+            raise NotImplementedError(
+                "embedding_dropout at train time is not ported yet: "
+                "ROADMAP.md Queue 1, slice 2 (train-time dropout)")
+        B = labels.shape[0]
+        emb = self.embedding(labels.long())  # (B, U, E)
+        emb = torch.cat([emb.new_zeros((B, 1, emb.shape[-1])), emb], dim=1)
+        g, _, _ = self.pred_rnn(emb, label_lens + 1, train)
+        return g
 
     def init_state(self, n: int, device) -> List[List[LSTMState]]:
         """Zero prediction-net state for a batch of ``n``."""
@@ -146,6 +180,11 @@ class RNNT(nn.Module):
                                         initial_states=state)
         return g[:, 0, :], new_state
 
+    def joint(self, f: torch.Tensor, g: torch.Tensor,
+              train: bool = False) -> torch.Tensor:
+        """Joint logits ``(B, T, U+1, V)`` (see :meth:`RNNTJoint.forward`)."""
+        return self.joint_net(f, g, train)
+
     def joint_project_f(self, f: torch.Tensor) -> torch.Tensor:
         """Encoder-side joint projection (hoisted out of the decode loop)."""
         return self.joint_net.project_f(f)
@@ -153,3 +192,11 @@ class RNNT(nn.Module):
     def joint_from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """Joint logits from a pre-projected encoder row."""
         return self.joint_net.from_fp(fp, g)
+
+    def forward(self, x: torch.Tensor, x_lens: torch.Tensor,
+                labels: torch.Tensor, label_lens: torch.Tensor,
+                train: bool = False):
+        """Full training forward: ``(logits (B, T', U+1, V), f_lens)``."""
+        f, f_lens = self.encode(x, x_lens, train)
+        g = self.predict(labels, label_lens, train)
+        return self.joint(f, g, train), f_lens

@@ -2,8 +2,10 @@
 
 - The input projection ``x @ W_ih`` for all time steps is one large matmul
   in the compute dtype, outside the recurrence.
-- The recurrence itself is K1 (``ops/cuda/lstm_kernel.py::lstm_fwd``): the
-  CUDA kernel for a CUDA tensor, its plain version for a CPU tensor.
+- The recurrence itself is ``ops/cuda/lstm_kernel.py::LSTMFunction``: K1
+  forward and K2 backward, each the CUDA kernel for a CUDA tensor and its
+  plain version for a CPU tensor, so that a gradient reaches ``w_hh``, the
+  bias and everything below the layer on every device.
 - Variable lengths are handled by masking, not packing: padded steps run,
   but the state is frozen on them, so the final state is the state at
   ``t = len - 1``, and outputs there are zero.
@@ -18,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from myrtlespeech_tpu_torch.ops.cuda.lstm_kernel import lstm_fwd
+from myrtlespeech_tpu_torch.ops.cuda.lstm_kernel import LSTMFunction
 from myrtlespeech_tpu_torch.ops.masking import sequence_mask
 
 
@@ -64,7 +66,7 @@ def lstm_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
     x_proj = (x.reshape(T * B, F).to(compute_dtype)
               @ w_ih.to(compute_dtype)).reshape(T, B, 4 * H)
     valid = sequence_mask(lengths.to(dev), T, torch.float32).t().contiguous()
-    ys, _cs, _ifgo, hT, cT = lstm_fwd(
+    ys, hT, cT = LSTMFunction.apply(
         x_proj, valid, w_hh, h0c0.h.float().contiguous(),
         h0c0.c.float().contiguous(), None if b is None else b.float())
     if reverse:

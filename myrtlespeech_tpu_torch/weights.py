@@ -1,4 +1,5 @@
-"""The weight bridge: the JAX package's parameters -> the port's state_dict.
+"""The weight bridge between the JAX package's parameters and the port's
+state_dict, both ways.
 
 The JAX package names parameters by ``/``-joined Flax paths
 (``enc_rnn1/l0_fwd_w_hh``, ``joint_net/rest/Dense_0/kernel``) and stores
@@ -8,14 +9,16 @@ keeps Flax's names (``/`` becomes ``.``) and Flax's ``(in, out)`` matrix
 layout in its own parameters, so the bridge renames and casts to fp32 and
 never transposes.
 
-Both functions hold the input to the state_dict of the model that the task
-config builds: a key the model lacks, a parameter the input lacks, or a
-shape that differs raises, naming the key.
+``params_from_flat`` and ``params_from_npz`` hold the input to the
+state_dict of the model that the task config builds: a key the model lacks,
+a parameter the input lacks, or a shape that differs raises, naming the key.
+``flat_from_params`` maps a state_dict, or a dict of gradients under the
+same names, back to ``{flax/path: fp32 array}``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -67,3 +70,12 @@ def params_from_npz(path: str, cfg: S.TaskConfig) -> Dict[str, torch.Tensor]:
             else:
                 flat[key] = arr
     return params_from_flat(flat, cfg)
+
+
+def flat_from_params(params: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """``{name: tensor}`` (a state_dict, or gradients keyed alike) ->
+    ``{flax/path: fp32 numpy array}``, the inverse of
+    :func:`params_from_flat`."""
+    return {name.replace(".", "/"): t.detach().float().cpu().numpy()
+            for name, t in params.items()}

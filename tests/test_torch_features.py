@@ -100,10 +100,19 @@ def test_build_preprocess_eval_matches_jax_and_skips_train_steps():
 
 
 def test_spec_augment_at_train_time_is_not_ported_yet():
+    """SpecAugment at train time is ported now (its parity with the JAX
+    package is in ``test_torch_specaugment.py``): a train-time call draws
+    its masks from an explicit generator, refuses to run without one, and
+    only zeroes features of the eval-time result."""
     wav, lens = _audio(seed=4)
     pre = port_build.build_preprocess(_steps(PS))
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
+    with pytest.raises(ValueError, match="Generator"):
         pre(torch.from_numpy(wav), torch.from_numpy(lens), train=True)
+    clean, _ = pre(torch.from_numpy(wav), torch.from_numpy(lens))
+    masked, _ = pre(torch.from_numpy(wav), torch.from_numpy(lens),
+                    train=True, gen=torch.Generator().manual_seed(0))
+    changed = masked != clean
+    assert changed.any() and (masked[changed] == 0).all()
 
 
 @pytest.mark.parametrize("time_axis,value", [(1, 0.0), (2, -1.5)])

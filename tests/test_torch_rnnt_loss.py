@@ -1,0 +1,193 @@
+"""K3 and K4 (the transducer lattice) and the RNN-T loss of the PyTorch port
+against the JAX package.
+
+On the CPU the port's lattice wrappers run K3's and K4's plain versions; the
+JAX side runs ``rnnt_lattice_pallas`` in interpret mode (values and custom
+VJP), its fused blank/emit front, or its lax loss.  The loss is also held to
+``np_rnnt_nll``, the float64 dynamic program of ``tests/test_rnnt_loss.py``.
+The CUDA kernels are held against their plain versions on the card by
+``tests/test_torch_cuda_kernels.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from myrtlespeech_tpu.ops import rnnt as jax_rnnt
+from myrtlespeech_tpu.ops.pallas import rnnt_kernel as jax_k
+from myrtlespeech_tpu_torch.ops import rnnt as port_rnnt
+from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as port_k
+from tests.test_rnnt_loss import np_rnnt_nll
+
+# The same fp32 recursion on both sides (Hillis-Steele scan, pad-invariant
+# inputs): only libm's exp/log1p may differ by an ulp: 1e-5.
+LATTICE_TOL = 1e-5
+# Against the float64 dynamic program: fp32 sums over the lattice, 1e-4 (the
+# JAX package's own tolerance there).
+ORACLE_TOL = 1e-4
+
+
+def _lattice_case(B, T, U1, seed):
+    rng = np.random.default_rng(seed)
+    lpb = np.log(rng.uniform(0.05, 1.0, (B, T, U1))).astype(np.float32)
+    lpe = np.log(rng.uniform(0.05, 1.0, (B, T, U1))).astype(np.float32)
+    fl = rng.integers(1, T + 1, B).astype(np.int32)
+    fl[0] = T
+    ul = rng.integers(0, U1, B).astype(np.int32)
+    ul[0] = U1 - 1
+    ul[-1] = 0  # a row with no labels
+    g = rng.uniform(0.5, 1.5, B).astype(np.float32)
+    return lpb, lpe, fl, ul, g
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 5, 4), (9, 4, 6), (2, 1, 3)])
+def test_plain_k3_k4_match_pallas_lattice(B, T, U1):
+    lpb, lpe, fl, ul, g = _lattice_case(B, T, U1, seed=B + T)
+    with pltpu.force_tpu_interpret_mode():
+        ll_j, vjp = jax.vjp(
+            lambda a, b: jax_k.rnnt_lattice(a, b, jnp.asarray(fl),
+                                            jnp.asarray(ul)),
+            jnp.asarray(lpb), jnp.asarray(lpe))
+        gb_j, ge_j = vjp(jnp.asarray(g))
+        _, (_, _, alphas_j, _, _) = jax_k._lattice_fwd_impl(
+            jnp.asarray(lpb), jnp.asarray(lpe), jnp.asarray(fl),
+            jnp.asarray(ul))
+
+    a = torch.from_numpy(lpb).requires_grad_()
+    b = torch.from_numpy(lpe).requires_grad_()
+    launches = (port_k.rnnt_lattice_fwd.launches,
+                port_k.rnnt_lattice_bwd.launches)
+    ll = port_k.rnnt_lattice(a, b, torch.from_numpy(fl), torch.from_numpy(ul))
+    gb, ge = torch.autograd.grad(ll, (a, b), torch.from_numpy(g))
+    assert (port_k.rnnt_lattice_fwd.launches,
+            port_k.rnnt_lattice_bwd.launches) == launches  # CPU: no kernel
+    np.testing.assert_allclose(ll.detach().numpy(), np.asarray(ll_j),
+                               rtol=LATTICE_TOL, atol=LATTICE_TOL)
+    np.testing.assert_allclose(gb.numpy(), np.asarray(gb_j),
+                               rtol=LATTICE_TOL, atol=LATTICE_TOL)
+    np.testing.assert_allclose(ge.numpy(), np.asarray(ge_j),
+                               rtol=LATTICE_TOL, atol=LATTICE_TOL)
+    # K3's saved alphas, laid out (T, B, U+1) as the TPU kernel's.
+    alphas, _ = port_k.rnnt_lattice_fwd_reference(
+        torch.from_numpy(lpb), torch.from_numpy(lpe), torch.from_numpy(fl),
+        torch.from_numpy(ul))
+    np.testing.assert_allclose(alphas.numpy(), np.asarray(alphas_j)[:, :B],
+                               rtol=LATTICE_TOL, atol=LATTICE_TOL)
+
+
+def test_plain_k4_gradients_are_the_lattice_occupancies():
+    """K4's analytic gradients equal autograd through the plain lax-style
+    recursion of ``rnnt_log_likelihood_from_blank_emit``."""
+    lpb, lpe, fl, ul, g = _lattice_case(5, 7, 5, seed=11)
+    a = torch.from_numpy(lpb).requires_grad_()
+    b = torch.from_numpy(lpe).requires_grad_()
+    ll = port_rnnt.rnnt_log_likelihood_from_blank_emit(
+        a, b, torch.from_numpy(fl), torch.from_numpy(ul))
+    want = torch.autograd.grad(ll, (a, b), torch.from_numpy(g))
+    got = torch.autograd.grad(
+        port_k.rnnt_lattice(a, b, torch.from_numpy(fl), torch.from_numpy(ul)),
+        (a, b), torch.from_numpy(g))
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=LATTICE_TOL, atol=LATTICE_TOL)
+
+
+def _loss_case(seed, B=3, T=6, U=4, V=5):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, U + 1, V)).astype(np.float32)
+    logit_lens = rng.integers(2, T + 1, size=B).astype(np.int32)
+    labels = rng.integers(1, V, size=(B, U)).astype(np.int32)
+    label_lens = rng.integers(0, U + 1, size=B).astype(np.int32)
+    label_lens[-1] = 0
+    return logits, logit_lens, labels, label_lens
+
+
+@pytest.mark.parametrize("seed,blank", [(0, 0), (1, 0), (2, 0), (3, 4)])
+@pytest.mark.parametrize("loss", ["plain", "lattice"])
+def test_rnnt_loss_matches_float64_oracle(seed, blank, loss):
+    logits, logit_lens, labels, label_lens = _loss_case(seed)
+    if blank:
+        # Labels never take the blank's id.
+        labels = np.where(labels == blank, 1, labels).astype(np.int32)
+    args = (torch.from_numpy(logits), torch.from_numpy(logit_lens),
+            torch.from_numpy(labels), torch.from_numpy(label_lens))
+    if loss == "plain":
+        nll = port_rnnt.rnnt_loss(*args, blank_index=blank, reduction="none")
+    else:
+        nll = port_k.rnnt_loss_lattice(*args, blank_index=blank)
+    nll = nll.detach().numpy()
+    for b in range(logits.shape[0]):
+        want = np_rnnt_nll(logits[b], int(logit_lens[b]), labels[b],
+                           int(label_lens[b]), blank=blank)
+        np.testing.assert_allclose(nll[b], want, rtol=ORACLE_TOL,
+                                   atol=ORACLE_TOL)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_lattice_loss_and_logit_gradients_match_jax(reduction):
+    logits, logit_lens, labels, label_lens = _loss_case(5, B=4, T=7, U=3,
+                                                        V=6)
+    args = [jnp.asarray(a) for a in (logit_lens, labels, label_lens)]
+
+    def jax_loss(x):
+        out = jax_rnnt.rnnt_loss(x, *args, blank_index=0,
+                                 reduction=reduction)
+        return jnp.sum(out * jnp.arange(1, out.size + 1).reshape(out.shape))
+
+    want_loss = jax_loss(jnp.asarray(logits))
+    want_grad = jax.grad(jax_loss)(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_()
+    out = port_rnnt.weighted_reduce(port_k.rnnt_loss_lattice(
+        x, torch.from_numpy(logit_lens), torch.from_numpy(labels),
+        torch.from_numpy(label_lens), blank_index=0), reduction)
+    got = (out * torch.arange(1, out.numel() + 1).reshape(out.shape)).sum()
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want_loss),
+                               rtol=ORACLE_TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad),
+                               rtol=ORACLE_TOL, atol=ORACLE_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("blank", [0, 3])
+def test_blank_emit_front_matches_jax(dtype, blank):
+    rng = np.random.default_rng(7)
+    B, T, U, V = 3, 4, 5, 7
+    logits = rng.standard_normal((B, T, U + 1, V)).astype(np.float32)
+    labels = rng.integers(0, V, (B, U)).astype(np.int32)
+    gb, ge = (rng.standard_normal((B, T, U + 1)).astype(np.float32)
+              for _ in range(2))
+    jl = jnp.asarray(logits, getattr(jnp, dtype))
+    (lpb_j, lpe_j), vjp = jax.vjp(
+        lambda x: jax_rnnt.blank_emit_from_logits(x, jnp.asarray(labels),
+                                                  blank), jl)
+    (dx_j,) = vjp((jnp.asarray(gb), jnp.asarray(ge)))
+
+    x = torch.from_numpy(logits).to(getattr(torch, dtype)).requires_grad_()
+    lpb, lpe = port_rnnt.blank_emit_from_logits(x, torch.from_numpy(labels),
+                                                blank)
+    (dx,) = torch.autograd.grad((lpb, lpe), x, (torch.from_numpy(gb),
+                                                torch.from_numpy(ge)))
+    assert lpb.dtype == lpe.dtype == torch.float32
+    assert dx.dtype == getattr(torch, dtype)
+    # fp32 inside on both sides; the gradient is rounded to the logits'
+    # dtype (one bf16 step is 2^-8 of the value).
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(lpb.detach().numpy(), np.asarray(lpb_j),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(lpe.detach().numpy(), np.asarray(lpe_j),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(dx_j, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_lattice_wrappers_refuse_inputs_off_the_cpu_and_off_one_card():
+    args = [torch.zeros((2, 3, 4), device="meta"),
+            torch.zeros((2, 3, 4), device="meta"),
+            torch.zeros((2,), dtype=torch.int32, device="meta"),
+            torch.zeros((2,), dtype=torch.int32, device="meta")]
+    with pytest.raises(ValueError, match="CUDA device"):
+        port_k.rnnt_lattice_fwd(*args)

@@ -102,6 +102,16 @@ def test_kernel_module_imports_and_runs_without_nvcc_or_card():
         "out = k.lstm_fwd(x, torch.ones(2, 3), torch.zeros(2, 8),\n"
         "                 torch.zeros(3, 2), torch.zeros(3, 2))\n"
         "assert k.lstm_fwd.launches == 0\n"
+        "ys, cs, ifgo, _, _ = out\n"
+        "k.lstm_bwd(torch.ones(2, 3), torch.zeros(2, 8), torch.zeros(3, 2),\n"
+        "           cs, ifgo, ys, torch.zeros(3, 2), torch.zeros(3, 2))\n"
+        "assert k.lstm_bwd.launches == 0\n"
+        "from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as r\n"
+        "lp = torch.zeros(2, 3, 4)\n"
+        "n = torch.tensor([3, 2], dtype=torch.int32)\n"
+        "a, ll = r.rnnt_lattice_fwd(lp, lp, n, n)\n"
+        "r.rnnt_lattice_bwd(lp, lp, n, n, a, ll, torch.ones(2))\n"
+        "assert r.rnnt_lattice_fwd.launches == r.rnnt_lattice_bwd.launches == 0\n"
         "assert build.load_library.cache_info().currsize == 0\n")
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_VISIBLE_DEVICES="")
