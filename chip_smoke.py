@@ -24,16 +24,21 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              their plain versions on the 5 s (B=32, T'=251, U+1=65) and 15 s
              (T'=751, U+1=193) lattices: errors and times (no single library
              call computes the lattice, so no yardstick).
-6. flagship  ``rnn_t_en`` at full width with seeded random weights transcribes
+6. k56       K5 and K6 (the joint tail forward and backward) against their
+             plain versions at the flagship's lattice (B=32, T'=251, U+1=65),
+             on the first 8 rows of the long step's lattice (T'=836,
+             U+1=215) and at V=1024: errors, the kernels' and the plain
+             versions' times beside the bounds.
+7. flagship  ``rnn_t_en`` at full width with seeded random weights transcribes
              B=32 x 5 s of seeded audio through ``build_transcriber``: one
              warm-up and three timed runs, K1's launches on that path, a
              stage split, and one run traced with ``torch.profiler`` for
              K1's device time on the main path and the device's idle share.
-7. k1_main_path  every K1 call of one such run, recorded and replayed
+8. k1_main_path  every K1 call of one such run, recorded and replayed
              through K1 (errors against the plain version on the main
              path's own inputs), the plain version and cuDNN (device time
              of each replay, traced alike).
-8. train     ``rnn_t_en`` at full width trains on B=32 x 5 s with 64 labels
+9. train     ``rnn_t_en`` at full width trains on B=32 x 5 s with 64 labels
              through ``make_train_step``: a warm-up step, then timed steps
              in which K1 and K2 launch 1,885 times a step and K3 and K4 once
              and no plain version runs; finite loss and gradient norm, every
@@ -42,9 +47,20 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              idle share; every K1, K2, K3 and K4 call of one step replayed
              through its kernel (errors), its plain version and (K2) cuDNN,
              each replay's device time traced.
-             Then the medium config from seeded weights, warmup off, takes
-             20 steps on one repeated batch: its loss must fall.
-9. trained   the trained medium RNN-T (committed npz) decodes its
+             Then ``path_equality``: from one encode/predict at B=32 x 5 s,
+             the loss and the gradients of f, g and the joint's weights
+             through the full joint, the joint tail (K5, K6) and the chunked
+             path agree.  Then ``train_long``: B=128 x 16.7 s with 214
+             labels, over the memory planner's budget, trains through the
+             joint tail: K1 and K2 6,280 launches a step, K3 to K6 one, no
+             plain version; step time, split, peak memory, one traced step;
+             one K1 and K2 call of each shape and the K5 and K6 calls
+             replayed against their plain versions; then the same batch
+             through the chunked path (time and peak memory, or its
+             out-of-memory error) as the yardstick.  Then the medium config
+             (which forces the chunked path) from seeded weights, warmup
+             off, takes 20 steps on one repeated batch: its loss must fall.
+10. trained  the trained medium RNN-T (committed npz) decodes its
              256-utterance eval split greedily at B=32; its WER must lie
              within 0.01 of the JAX package's greedy WER for the same weights;
              its eval loss over the split and the gradient norm of the first
@@ -60,6 +76,7 @@ CUDA card the script exits non-zero before it prints any result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import statistics
@@ -129,12 +146,39 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
+# K5 against its plain version: the same bf16 hidden and fp32 sums in
+# another order (mma tiles, an online log-sum-exp over 32-column chunks).
+# Over the outputs' largest magnitude it read at most 5.5e-7 on an H100
+# (the flagship lattice, the long lattice's first 8 rows, V=1024 and the long
+# step's own call; PERF.md): 1e-5 leaves some 18x room.  K6 rounds dlogits to
+# bf16 as the plain version does, but a sum taken in another order can put
+# one element on the neighbouring bf16 value (2^-8 of it) before the
+# products, and dfp and dgp come back in fp's dtype, bf16, where one
+# rounding step is up to 2^-7 of the largest element.  K6 read at most
+# 6.8e-3 of each gradient's largest magnitude (dfp, on the long step's
+# call): 2e-2 leaves 3x room.
+K5_TOL = 1e-5
+K6_TOL = 2e-2
+K56_OUTPUTS = ("lp_blank", "lp_emit", "dfp", "dgp", "dw2", "db2")
+
 # The flagship train step: K1 and K2 run once per step of every LSTM layer
-# (2 x 501 + 3 x 251 encoder, 2 x 65 prediction net), K3 and K4 once.
+# (2 x 501 + 3 x 251 encoder, 2 x 65 prediction net), K3 and K4 once; its
+# full joint fits, so K5 and K6 do not run.
 TRAIN_LABELS = 64
-TRAIN_LAUNCHES = {"k1": 1885, "k2": 1885, "k3": 1, "k4": 1}
+TRAIN_LAUNCHES = {"k1": 1885, "k2": 1885, "k3": 1, "k4": 1, "k5": 0,
+                  "k6": 0}
 TRAIN_STEPS = 5
 MEDIUM_STEPS = 20
+
+# The long train step: rnn_t_en at B=128 x 16.7 s (the configs'
+# max_duration_s) with 214 labels (bench.py's 12.8 labels a second): T=1671
+# frames, T'=836 after the time reduction, U+1=215.  Its full joint is
+# projected at 78.7 GB, over the planner's budget, so it trains through the
+# joint tail: K1 and K2 2 x 1671 + 3 x 836 + 2 x 215 times a step, K3 to K6
+# once.
+LONG_BATCH, LONG_SECONDS, LONG_LABELS = 128, 16.7, 214
+LONG_LAUNCHES = {"k1": 6280, "k2": 6280, "k3": 1, "k4": 1, "k5": 1, "k6": 1}
+LONG_STEPS = 3
 
 FLAGSHIP_BATCH, FLAGSHIP_SECONDS = 32, 5.0
 
@@ -545,6 +589,106 @@ def phase_k34(dev):
              k4_bound_by=by4)
 
 
+def k56_work(B: int, T: int, U1: int, K: int, V: int, in_bytes: int = 2,
+             w_bytes: int = 4):
+    """(operations, bytes) of one K5 and one K6 call: K5's product (2 *
+    cells * K * V), K6's three; the bytes that must move: fp, gp (``in_bytes``
+    an element), W2 (``w_bytes``), b2 and the labels read once, K5's two
+    (B, T, U+1) fp32 outputs written once; K6 reads the same inputs and the
+    two cotangents and writes dfp, dgp, dW2 and db2 once."""
+    cells = B * T * U1
+    ins = (B * T + B * U1) * K * in_bytes + K * V * w_bytes + V * 4 \
+        + B * U1 * 4
+    k5 = (2.0 * cells * K * V, ins + 2 * cells * 4)
+    k6 = (6.0 * cells * K * V, ins + 2 * cells * 4
+          + (B * T + B * U1) * K * in_bytes + K * V * w_bytes + V * 4)
+    return k5, k6
+
+
+def _k56_case(B, T, U1, K, V, seed, dev):
+    """K5/K6 inputs as the main path makes them: bf16 projections, an fp32
+    W2 and b2, labels in [1, V) padded with 0 at column U; cotangents of the
+    size of the lattice's (some 1/B)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dev)
+
+    fp = normal(B, T, K).to(torch.bfloat16)
+    gp = normal(B, U1, K).to(torch.bfloat16)
+    lab = torch.from_numpy(rng.integers(1, V, (B, U1)).astype(
+        np.int32)).to(dev)
+    lab[:, -1] = 0
+    args = (fp, gp, normal(K, V, scale=1 / np.sqrt(K)), normal(V, scale=0.1),
+            lab)
+    return args, (normal(B, T, U1, scale=1 / B), normal(B, T, U1, scale=1 / B))
+
+
+def k56_errors(got, want, label: str):
+    """Largest |kernel - plain| per output of K5 and K6, and each over the
+    output's largest magnitude; raises beyond K5_TOL / K6_TOL of it."""
+    errs, rel = {}, {}
+    for name, g, w in zip(K56_OUTPUTS, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"K5/K6 {label} {name}: {g.dtype} "
+                                 f"{tuple(g.shape)} vs plain {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        rel[name] = errs[name] / (w.float().abs().max().item() + 1e-30)
+    bad = {n: r for n, r in rel.items()
+           if not np.isfinite(r)
+           or r > (K5_TOL if n.startswith("lp") else K6_TOL)}
+    if bad:
+        raise AssertionError(f"K5/K6 {label}: max |err| {errs}, relative "
+                             f"{rel}, beyond {K5_TOL} (K5) / {K6_TOL} (K6) "
+                             "of the magnitude")
+    return errs, rel
+
+
+JOINT_CFG = (0, "relu", 20.0, "bfloat16")  # blank, act, clip, mxu dtype
+
+
+def phase_k56(dev):
+    """K5 and K6 against their plain versions, timed: at the flagship's
+    lattice, on the long lattice's first 8 rows (where the plain version's
+    (B, T', U+1, K) tensors fit) and at a vocabulary of 1,024 (32 chunks of
+    the online log-sum-exp).  Times are CUDA-event medians of the wrapper
+    calls (operand layout and, for K6, the sums of the partials included)."""
+    from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
+
+    shapes = {"5s": (32, 251, 65, 512, 29),
+              "long_8_rows": (8, 836, 215, 512, 29),
+              "V1024": (4, 64, 33, 512, 1024)}
+    for i, (label, (B, T, U1, K, V)) in enumerate(shapes.items()):
+        args, cot = _k56_case(B, T, U1, K, V, seed=40 + i, dev=dev)
+        got = k.joint_tail_fwd(*args, *JOINT_CFG) \
+            + k.joint_tail_bwd(*args, *cot, *JOINT_CFG)
+        torch.cuda.synchronize()
+        want = k.joint_tail_fwd_reference(*args, *JOINT_CFG) \
+            + k.joint_tail_bwd_reference(*args, *cot, *JOINT_CFG)
+        errs, rel = k56_errors(got, want, label)
+        del got, want
+        times = {
+            "k5_ms": cuda_ms(lambda: k.joint_tail_fwd(*args, *JOINT_CFG), 10),
+            "k6_ms": cuda_ms(lambda: k.joint_tail_bwd(*args, *cot,
+                                                      *JOINT_CFG), 10),
+            "k5_plain_ms": cuda_ms(lambda: k.joint_tail_fwd_reference(
+                *args, *JOINT_CFG), 2),
+            "k6_plain_ms": cuda_ms(lambda: k.joint_tail_bwd_reference(
+                *args, *cot, *JOINT_CFG), 2)}
+        (f5, n5), (f6, n6) = k56_work(B, T, U1, K, V)
+        b5, by5 = bound(f5, n5)
+        b6, by6 = bound(f6, n6)
+        emit("k56", shape=label, B=B, T=T, U1=U1, K=K, V=V, max_abs_err=errs,
+             err_over_magnitude=rel,
+             tolerance={"k5": K5_TOL, "k6": K6_TOL}, **times,
+             library_ms=None, k5_bound_ms=b5, k5_bound_by=by5,
+             k6_bound_ms=b6, k6_bound_by=by6)
+        del args, cot
+        torch.cuda.empty_cache()
+
+
 def stage_ms(tr, wav, lens, runs: int = 3):
     """Median host-clock ms of features, encoder and greedy decode (joint
     projection plus the loop), each ending in a synchronise."""
@@ -806,11 +950,14 @@ def phase_main_path_k1(dev, flagship):
 
 
 def _train_kernels():
-    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel, rnnt_kernel
+    from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
+                                                 rnnt_kernel)
 
     return {"k1": lstm_kernel.lstm_fwd, "k2": lstm_kernel.lstm_bwd,
             "k3": rnnt_kernel.rnnt_lattice_fwd,
-            "k4": rnnt_kernel.rnnt_lattice_bwd}
+            "k4": rnnt_kernel.rnnt_lattice_bwd,
+            "k5": joint_kernel.joint_tail_fwd,
+            "k6": joint_kernel.joint_tail_bwd}
 
 
 def _zero_counts():
@@ -823,17 +970,43 @@ def _read_counts():
 
 
 def _plain_guard():
-    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel, rnnt_kernel
+    from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
+                                                 rnnt_kernel)
 
     return PlainGuard([(lstm_kernel, "lstm_fwd_reference"),
                        (lstm_kernel, "lstm_bwd_reference"),
                        (rnnt_kernel, "rnnt_lattice_fwd_reference"),
-                       (rnnt_kernel, "rnnt_lattice_bwd_reference")])
+                       (rnnt_kernel, "rnnt_lattice_bwd_reference"),
+                       (joint_kernel, "joint_tail_fwd_reference"),
+                       (joint_kernel, "joint_tail_bwd_reference")])
 
 
 # Kernel names in a profiler trace.
 TRACE_NAMES = {"k1": "lstm_step_kernel", "k2": "lstm_bwd_step_kernel",
-               "k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel"}
+               "k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel",
+               "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel"}
+
+
+def trace_step(fn, want):
+    """One run of ``fn`` traced, with the launch counters zeroed first: its
+    wall ms, device events and each kernel's events.  The counters must read
+    ``want``.  The profiler has been seen to drop a kernel's event from a
+    trace (one trace in eight, its other events kept); when a kernel's
+    events do not number its launches, ``fn`` runs traced again, at most
+    twice more.  Returns ``(wall_ms, spans, kernel_spans, retries)``."""
+    for retries in range(3):
+        _zero_counts()
+        wall_ms, spans = device_trace(fn)
+        counts = _read_counts()
+        if counts != want:
+            raise AssertionError(f"traced launches {counts}, expected {want}")
+        kernel_spans = {k: [sp for sp in spans if name in sp[0]]
+                        for k, name in TRACE_NAMES.items()}
+        found = {k: len(sp) for k, sp in kernel_spans.items()}
+        if found == counts:
+            return wall_ms, spans, kernel_spans, retries
+    raise AssertionError(f"three traces held {found} kernels, the counters "
+                         f"{counts}")
 
 
 def phase_train(dev):
@@ -905,18 +1078,9 @@ def phase_train(dev):
     del loss
 
     # One step traced: each kernel's device time and the idle share.
-    _zero_counts()
-    traced_wall_ms, spans = device_trace(lambda: step(state, batch))
-    traced = _read_counts()
-    if traced != TRAIN_LAUNCHES:
-        raise AssertionError(f"traced step launches {traced}, expected "
-                             f"{TRAIN_LAUNCHES}")
-    kernel_spans = {k: [sp for sp in spans if name in sp[0]]
-                    for k, name in TRACE_NAMES.items()}
-    for k, sp in kernel_spans.items():
-        if len(sp) != traced[k]:
-            raise AssertionError(f"the trace holds {len(sp)} {k} kernels, "
-                                 f"the counter {traced[k]}")
+    traced = TRAIN_LAUNCHES
+    traced_wall_ms, spans, kernel_spans, retries = trace_step(
+        lambda: step(state, batch), traced)
     by_kernel = collections.Counter()
     for name, s, e in spans:
         by_kernel[name[:80]] += (e - s) / 1e3
@@ -936,7 +1100,7 @@ def phase_train(dev):
          optimizer_ms=1e3 * (t3 - t2), peak_memory_gb=peak_gb,
          traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / traced_wall_ms,
-         device_events=len(spans),
+         device_events=len(spans), trace_retries=retries,
          kernel_device_ms={k: span_ms(sp) for k, sp in kernel_spans.items()},
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
          again_traced_wall_ms=again_wall_ms,
@@ -1069,6 +1233,328 @@ def phase_train_main_path(dev, trained):
     ]
 
 
+# Path equality at the flagship shape: the loss and the gradients of f, g
+# and the joint's parameters through the joint-tail and chunked paths
+# against the full joint, over the loss's magnitude and each gradient's
+# largest magnitude.  The full joint's backward runs in bf16 (the Dense
+# layer's dtype): it rounds dlogits @ W2^T to bf16 for every cell before the
+# sums over u and t, where the joint tail and the JAX package's kernel sum
+# in fp32, and f's gradient, a sum over 65 u of terms that largely cancel,
+# shows it most.  On an H100 the joint tail read 0.0497 (f) and at most
+# 0.0108 elsewhere, the chunked path 0.0066 (its per-chunk sums run in
+# another order), both losses bit-equal to the full joint's (PERF.md): 2x
+# and 3x room on the gradients, 1e-5 on the loss.
+PATH_TOL = {"chunked": {"loss": 1e-5, "grads": 2e-2},
+            "joint_tail": {"loss": 1e-5, "grads": 0.1}}
+
+
+def _flagship_f_g(task, model, batch):
+    """Eval-mode encoder and prediction outputs of one batch, as leaves."""
+    with torch.no_grad():
+        feats, flens = task.preprocess(batch["wav"], batch["wav_lens"], False)
+        f, f_lens = model.encode(feats, flens)
+        g = model.predict(batch["labels"], batch["label_lens"])
+    return f.detach().requires_grad_(), f_lens, g.detach().requires_grad_()
+
+
+def phase_path_equality(dev):
+    """From one encode/predict of rnn_t_en at B=32 x 5 s, the transducer loss
+    through the full joint, the joint tail (K5, K6, then K3, K4) and the
+    chunked path (chunk 64): the loss and the gradients of f, g, W1, b1, W2
+    and b2 agree within PATH_TOL."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.run import train
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    task = build_task(load_config("rnn_t_en"))
+    state = train.init_state(task, seed=0, device=str(dev))
+    model = state.model
+    batch = train.to_device(train.example_batch(
+        FLAGSHIP_BATCH, FLAGSHIP_SECONDS, TRAIN_LABELS, 0), dev)
+    f, f_lens, g = _flagship_f_g(task, model, batch)
+    labels, label_lens = batch["labels"], batch["label_lens"]
+    dense = model.joint_net.rest.Dense_0
+    leaves = {"f": f, "g": g, "W1": model.joint_net.kernel,
+              "b1": model.joint_net.bias, "W2": dense.kernel,
+              "b2": dense.bias}
+    paths = {
+        "full": lambda: task.loss_fn(model.joint(f, g, True), f_lens, labels,
+                                     label_lens),
+        "joint_tail": lambda: task.joint_tail_loss(
+            model, f, f_lens, g, labels, label_lens, True),
+        "chunked": lambda: task.fused_loss_auto(
+            model, f, f_lens, g, labels, label_lens, True, chunk_size=64)}
+    out, launches = {}, {}
+    for name, fn in paths.items():
+        _zero_counts()
+        loss = fn()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        launches[name] = _read_counts()
+        out[name] = (loss.item(), [gr.float() for gr in grads])
+    loss_full, grads_full = out["full"]
+    errs = {}
+    for name in ("joint_tail", "chunked"):
+        loss, grads = out[name]
+        errs[name] = {"loss": abs(loss - loss_full) / abs(loss_full)}
+        for leaf, gr, w in zip(leaves, grads, grads_full):
+            errs[name][leaf] = ((gr - w).abs().max().item()
+                                / (w.abs().max().item() + 1e-30))
+    emit("path_equality", config="rnn_t_en", batch=FLAGSHIP_BATCH,
+         seconds=FLAGSHIP_SECONDS, lattice=[FLAGSHIP_BATCH, f.shape[1],
+                                            g.shape[1]],
+         losses={n: o[0] for n, o in out.items()},
+         err_over_magnitude=errs, tolerance=PATH_TOL, launches=launches)
+    if launches["joint_tail"]["k5"] != 1 or launches["joint_tail"]["k6"] != 1:
+        raise AssertionError(f"the joint-tail path did not run K5 and K6 "
+                             f"once each: {launches['joint_tail']}")
+    for name, e in errs.items():
+        tol = PATH_TOL[name]
+        if not (e["loss"] <= tol["loss"]
+                and all(np.isfinite(v) and v <= tol["grads"]
+                        for k, v in e.items() if k != "loss")):
+            raise AssertionError(f"the {name} path differs from the full "
+                                 f"joint by {e}, beyond {tol}")
+    del state, model, out
+
+
+def _first_per_shape(calls, shape_of):
+    """The first recorded call of each distinct shape."""
+    seen = {}
+    for args in calls:
+        seen.setdefault(tuple(shape_of(args)), args)
+    return seen
+
+
+def _plain_in_rows(ref, args, n_tensor_args: int, rows: int = 8):
+    """The plain version of K5 (``n_tensor_args`` 5) or K6 (7) over a call's
+    batch rows, ``rows`` at a time (its (rows, T', U+1, K) tensors fit where
+    the whole batch's do not): the row-wise outputs concatenated, K6's dW2
+    and db2 summed."""
+    tensors, cfg = args[:n_tensor_args], args[n_tensor_args:]
+    parts = [ref(*(t[i:i + rows] for t in tensors[:2]), *tensors[2:4],
+                 *(t[i:i + rows] for t in tensors[4:]), *cfg)
+             for i in range(0, tensors[0].shape[0], rows)]
+    out = [torch.cat([p[j] for p in parts]) for j in range(2)]
+    for j in range(2, len(parts[0])):
+        out.append(sum(p[j].float() for p in parts).to(parts[0][j].dtype))
+    return tuple(out)
+
+
+def phase_train_long(dev):
+    """rnn_t_en at full width trains on B=128 x 16.7 s with 214 labels:
+    the planner sends it to the joint-tail path; K1-K6 launch as
+    LONG_LAUNCHES a step and no plain version runs; finite loss, every
+    parameter moved after step 1; step time, split, peak memory; one traced
+    step (device time by kernel, idle share); the step's K1, K2 (one call of
+    each shape), K5 and K6 calls replayed against their plain versions; then
+    the same batch through the chunked path (the planner's chunk) for its
+    time and peak memory, or its out-of-memory error."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.ops.cuda import joint_kernel, lstm_kernel
+    from myrtlespeech_tpu_torch.run import train
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    B, secs, U = LONG_BATCH, LONG_SECONDS, LONG_LABELS
+    task = build_task(load_config("rnn_t_en"))
+    t0 = time.perf_counter()
+    state = train.init_state(task, seed=0, device=str(dev))
+    batch = train.to_device(train.example_batch(B, secs, U, 0), dev)
+    frames = int(16000 * secs) // 160 + 1
+    T2 = -(-frames // 2)
+    probe = (torch.zeros((B, T2, 1024), device=dev),
+             torch.zeros((B, U + 1, 320), device=dev))
+    fused, chunk = train._select_joint_path(task, *probe, backward=True)
+    if fused is not task.joint_tail_loss:
+        raise AssertionError(f"the long batch (B, T', U+1) = {(B, T2, U + 1)} "
+                             "did not take the joint-tail path")
+    step = train.make_train_step(task)
+    state, m = step(state, batch)  # warm-up: step 0, whose lr is 0
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    before = {n: p.detach().clone()
+              for n, p in state.model.named_parameters()}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses, gnorms = [], [], []
+    with _plain_guard() as guard:
+        _zero_counts()
+        for i in range(LONG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            if i == 0:
+                moved = {n: (p.detach() - before[n]).abs().max().item()
+                         for n, p in state.model.named_parameters()}
+        launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del before
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on the long train path: "
+                             f"{dict(guard.calls)}")
+    want = {k: n * LONG_STEPS for k, n in LONG_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"launches over {LONG_STEPS} long steps: "
+                             f"{launches}, expected {want}")
+    if not all(np.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"long step loss {losses} or grad_norm {gnorms} "
+                             "not finite")
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"parameters after step 1 moved by {moved}")
+
+    # Stage split of one more step, host clock, synced at each boundary.
+    torch.cuda.synchronize()
+    split = [time.perf_counter()]
+    state.optimizer.zero_grad()
+    loss, _ = train._forward(task, state.model, batch, True, state.gen)
+    torch.cuda.synchronize()
+    split.append(time.perf_counter())
+    loss.backward()
+    torch.cuda.synchronize()
+    split.append(time.perf_counter())
+    state.optimizer.step(state.step)
+    state.step += 1
+    torch.cuda.synchronize()
+    split.append(time.perf_counter())
+    del loss
+
+    traced = LONG_LAUNCHES
+    traced_wall_ms, spans, kernel_spans, retries = trace_step(
+        lambda: step(state, batch), traced)
+    by_kernel = collections.Counter()
+    for name, s, e in spans:
+        by_kernel[name[:80]] += (e - s) / 1e3
+    busy = busy_ms(spans)
+
+    # The step's calls, for the replays: one K1 and K2 call of each shape,
+    # K5's and K6's one call each.
+    calls = record_many({"k1": (lstm_kernel, "lstm_fwd"),
+                         "k2": (lstm_kernel, "lstm_bwd"),
+                         "k5": (joint_kernel, "joint_tail_fwd"),
+                         "k6": (joint_kernel, "joint_tail_bwd")},
+                        lambda: step(state, batch))
+    torch.cuda.synchronize()
+    k1_calls = _first_per_shape(calls.pop("k1"), lambda a: a[0].shape)
+    k2_calls = _first_per_shape(calls.pop("k2"), lambda a: a[4].shape)
+    (k5_args,), (k6_args,) = calls["k5"], calls["k6"]
+    del calls
+    k1_errs = dict.fromkeys(K1_OUTPUTS, 0.0)
+    k2_errs, k2_rel = {}, {}
+    with torch.no_grad():
+        for args in k1_calls.values():
+            for n, e in k1_errors(lstm_kernel.lstm_fwd(*args),
+                                  lstm_kernel.lstm_fwd_reference(*args),
+                                  "long step").items():
+                k1_errs[n] = max(k1_errs[n], e)
+        check_errors(k1_errs, "long step")
+        for args in k2_calls.values():
+            e, r = k2_errors(lstm_kernel.lstm_bwd(*args),
+                             lstm_kernel.lstm_bwd_reference(*args),
+                             "long step")
+            for n in e:
+                k2_errs[n] = max(k2_errs.get(n, 0.0), e[n])
+                k2_rel[n] = max(k2_rel.get(n, 0.0), r[n])
+        del k1_calls, k2_calls
+        torch.cuda.empty_cache()
+        got = joint_kernel.joint_tail_fwd(*k5_args) \
+            + joint_kernel.joint_tail_bwd(*k6_args)
+        want = _plain_in_rows(joint_kernel.joint_tail_fwd_reference, k5_args,
+                              5) \
+            + _plain_in_rows(joint_kernel.joint_tail_bwd_reference, k6_args, 7)
+        k56_errs, k56_rel = k56_errors(got, want, "long step")
+        del got, want
+        torch.cuda.empty_cache()
+        _, k5_plain = device_trace(lambda: _plain_in_rows(
+            joint_kernel.joint_tail_fwd_reference, k5_args, 5))
+        _, k6_plain = device_trace(lambda: _plain_in_rows(
+            joint_kernel.joint_tail_bwd_reference, k6_args, 7))
+    fp, gp, w2 = k5_args[0], k5_args[1], k5_args[2]
+    Bk, Tk, K = fp.shape
+    U1k, V = gp.shape[1], w2.shape[1]
+    (f5, n5), (f6, n6) = k56_work(Bk, Tk, U1k, K, V, fp.element_size(),
+                                  w2.element_size())
+    b5, by5 = bound(f5, n5)
+    b6, by6 = bound(f6, n6)
+    del k5_args, k6_args
+    torch.cuda.empty_cache()
+
+    # The yardstick: the same batch's step through the chunked path, which
+    # the port takes when the joint tail is switched off.
+    os.environ["MYRTLE_DISABLE_PALLAS_JOINT"] = "1"
+    try:
+        c_fused, c_chunk = train._select_joint_path(task, *probe,
+                                                    backward=True)
+        if c_fused is not task.fused_loss_auto:
+            raise AssertionError("the long batch did not take the chunked "
+                                 "path with the joint tail switched off")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        c_times = []
+        try:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                c_loss = float(m["loss"])
+                c_times.append(time.perf_counter() - t0)
+            chunked = {"chunk": c_chunk, "ms_runs": [1e3 * t for t in c_times],
+                       "ms_per_step": 1e3 * statistics.median(c_times[1:]),
+                       "peak_memory_gb":
+                           torch.cuda.max_memory_allocated(dev) / 1e9,
+                       "loss": c_loss}
+        except torch.cuda.OutOfMemoryError as exc:
+            chunked = {"chunk": c_chunk, "out_of_memory": str(exc)[:400],
+                       "ms_runs": [1e3 * t for t in c_times]}
+    finally:
+        del os.environ["MYRTLE_DISABLE_PALLAS_JOINT"]
+    del state, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ms = 1e3 * statistics.median(times)
+    kernel_ms = {k: span_ms(sp) for k, sp in kernel_spans.items()}
+    emit("train_long", config="rnn_t_en", batch=B, seconds=secs, labels=U,
+         lattice=[B, T2, U + 1], path="joint_tail", setup_s=setup_s,
+         ms_per_step=ms, ms_runs=[1e3 * t for t in times],
+         audio_s_per_s=B * secs / (ms / 1e3), losses=losses,
+         grad_norms=gnorms, launches_per_step=LONG_LAUNCHES,
+         max_param_move_step1=max(moved.values()),
+         forward_ms=1e3 * (split[1] - split[0]),
+         backward_ms=1e3 * (split[2] - split[1]),
+         optimizer_ms=1e3 * (split[3] - split[2]), peak_memory_gb=peak_gb,
+         traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / traced_wall_ms,
+         device_events=len(spans), trace_retries=retries,
+         kernel_device_ms=kernel_ms,
+         device_ms_by_kernel=dict(by_kernel.most_common(12)),
+         k1_max_abs_err=k1_errs, k1_tolerance=K1_TOL,
+         k2_max_abs_err=k2_errs, k2_err_over_magnitude=k2_rel,
+         k56_max_abs_err=k56_errs, k56_err_over_magnitude=k56_rel,
+         k5_plain_device_ms=span_ms(k5_plain),
+         k6_plain_device_ms=span_ms(k6_plain), k5_bound_ms=b5,
+         k6_bound_ms=b6, chunked=chunked)
+    src = "myrtlespeech_tpu_torch/csrc/joint_tail.cu"
+    return [
+        {"name": "K5 joint_tail_fwd", "route": "cuda", "source": src,
+         "replaces": "myrtlespeech_tpu/ops/pallas/joint_kernel.py:106 "
+                     "(_fwd_kernel, pallas_call in _jt_impl :271)",
+         "launches": traced["k5"],
+         "max_abs_err": max(k56_errs["lp_blank"], k56_errs["lp_emit"]),
+         "ms": kernel_ms["k5"], "plain_ms": span_ms(k5_plain),
+         "bound_ms": b5, "bound_by": by5, "library_ms": None},
+        {"name": "K6 joint_tail_bwd", "route": "cuda", "source": src,
+         "replaces": "myrtlespeech_tpu/ops/pallas/joint_kernel.py:134 "
+                     "(_bwd_kernel, pallas_call in _jt_bwd :336)",
+         "launches": traced["k6"],
+         "max_abs_err": max(k56_errs[n] for n in K56_OUTPUTS[2:]),
+         "ms": kernel_ms["k6"], "plain_ms": span_ms(k6_plain),
+         "bound_ms": b6, "bound_by": by6, "library_ms": None},
+    ]
+
+
 def phase_medium_falls(dev):
     """The medium config from seeded weights, warmup off, takes
     MEDIUM_STEPS steps on one repeated batch of its train split: the loss
@@ -1089,13 +1575,23 @@ def phase_medium_falls(dev):
     batch = train.to_device(data[0], dev)
     step = train.make_train_step(task)
     losses = []
+    # The config sets fused_chunk_size=32, so training takes the chunked
+    # path (K3/K4 once a step, no K5/K6), as in the JAX package.
+    if task.fused_loss is None:
+        raise AssertionError("the medium config builds no chunked loss")
+    _zero_counts()
     t0 = time.perf_counter()
     for _ in range(MEDIUM_STEPS):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
     seconds = time.perf_counter() - t0
+    launches = _read_counts()
     emit("medium_falls", config="synthetic_medium_rnnt", batch=32,
-         steps=MEDIUM_STEPS, losses=losses, seconds=seconds)
+         steps=MEDIUM_STEPS, path="chunked", losses=losses, seconds=seconds,
+         launches=launches)
+    if (launches["k3"], launches["k5"]) != (MEDIUM_STEPS, 0):
+        raise AssertionError(f"the medium steps did not take the chunked "
+                             f"path: {launches}")
     if not (all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0]):
         raise AssertionError(f"the repeated-batch loss did not fall to half: "
                              f"{losses}")
@@ -1177,7 +1673,7 @@ def trained_loss(dev, npz: str):
          jax_eval_loss=JAX_EVAL_LOSS, eval_loss_rtol=EVAL_LOSS_RTOL,
          grad_norm=gnorm, jax_grad_norm=JAX_GRAD_NORM,
          grad_norm_rtol=GRAD_NORM_RTOL, launches=launches)
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("k1", "k2", "k3", "k4")) == 0:
         raise AssertionError(f"the trained loss path skipped a kernel: "
                              f"{launches}")
     if not abs(mean_loss - JAX_EVAL_LOSS) <= EVAL_LOSS_RTOL * JAX_EVAL_LOSS:
@@ -1203,6 +1699,7 @@ def main() -> int:
     phase_k1(dev)
     phase_k2(dev)
     phase_k34(dev)
+    phase_k56(dev)
     flagship = phase_flagship(dev)
     k1 = phase_main_path_k1(dev, flagship)
     del flagship
@@ -1212,9 +1709,11 @@ def main() -> int:
     k1_train, k234 = phase_train_main_path(dev, trained)
     k1.update(k1_train)
     del trained
+    phase_path_equality(dev)
+    k56 = phase_train_long(dev)
     phase_medium_falls(dev)
     phase_trained(dev)
-    print(json.dumps({"kernels": [k1] + k234}), flush=True)
+    print(json.dumps({"kernels": [k1] + k234 + k56}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ Port of ``myrtlespeech_tpu/builders/build.py`` for the RNN-T:
 ``vocab_size`` (``:58``), ``build_preprocess`` and ``preprocess_out_features``
 (``:67-137``), ``build_model`` for RNN-T (``:188-202``),
 the transducer ``build_loss`` (``:213-275``; its ``weighted_reduce`` lives
-in ``ops/rnnt.py``),
+in ``ops/rnnt.py``), ``build_fused_transducer_loss`` (``:277-311``),
+:func:`build_joint_tail_loss` (``build_pallas_joint_loss``, ``:314-372``),
 ``build_rnnt_decode_helpers`` and the greedy ``build_decoder``
 (``:395-488``), ``build_lr_schedule`` and ``build_optimizer``
 (``:510-563``), ``Task`` and ``build_task`` (without datasets, which the
@@ -29,8 +30,11 @@ from myrtlespeech_tpu_torch.data.alphabet import Alphabet
 from myrtlespeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
 from myrtlespeech_tpu_torch.models.rnn_t import RNNT
 from myrtlespeech_tpu_torch.ops import features as F
-from myrtlespeech_tpu_torch.ops.cuda.rnnt_kernel import rnnt_loss_lattice
-from myrtlespeech_tpu_torch.ops.rnnt import weighted_reduce
+from myrtlespeech_tpu_torch.ops.cuda.joint_kernel import (
+    joint_tail_blank_emit, joint_tail_supported)
+from myrtlespeech_tpu_torch.ops.cuda.rnnt_kernel import (rnnt_lattice,
+                                                         rnnt_loss_lattice)
+from myrtlespeech_tpu_torch.ops.rnnt import rnnt_loss_fused, weighted_reduce
 from myrtlespeech_tpu_torch.ops.specaugment import spec_augment
 
 
@@ -220,6 +224,73 @@ def build_loss(cfg: S.SpeechToTextConfig) -> Callable:
     return transducer
 
 
+def build_fused_transducer_loss(cfg: S.SpeechToTextConfig,
+                                force: bool = False) -> Optional[Callable]:
+    """The T-chunked joint+loss (``ops/rnnt.py::rnnt_loss_fused``), or None
+    when the config does not set ``RNNTLossConfig.fused_chunk_size`` (unless
+    ``force``: the memory planner's fallback).
+
+    Returns ``fused(model, f, f_lens, g, labels, label_lens, train=False,
+    chunk_size=None, weights=None) -> loss``; the chunk defaults to the
+    config's, else 32.
+    """
+    lc = cfg.loss
+    if lc.fused_chunk_size is None and not force:
+        return None
+    default_chunk = lc.fused_chunk_size or 32
+    red = lc.reduction.value
+
+    def fused(model: RNNT, f, f_lens, g, labels, label_lens,
+              train: bool = False, chunk_size: Optional[int] = None,
+              weights=None):
+        nll = rnnt_loss_fused(
+            f, f_lens, g, labels, label_lens,
+            lambda f_chunk: model.joint(f_chunk, g, train),
+            blank_index=lc.blank_index, reduction="none",
+            chunk_size=chunk_size or default_chunk)
+        return weighted_reduce(nll, red, weights)
+
+    return fused
+
+
+def build_joint_tail_loss(cfg: S.SpeechToTextConfig, dtype: torch.dtype
+                          ) -> Optional[Callable]:
+    """The joint-tail transducer loss (the JAX package's
+    ``build_pallas_joint_loss``): ``RNNT.joint_project`` (two small
+    products), K5 and K6 for ``act(fp + gp) @ W2 + b2`` and the blank/emit
+    front, then the lattice (K3, K4) and ``weighted_reduce``.  No ``(B, T,
+    U+1, K)`` hidden or ``(B, T, U+1, V)`` logits tensor is built, forward
+    or backward.
+
+    Returns a callable with the signature of
+    :func:`build_fused_transducer_loss`'s, or None when the joint's topology
+    falls outside the kernels (not one hidden layer, another activation).
+    The train-time dropout gate is the dispatcher's
+    (``run/train.py::_select_joint_path``).
+    """
+    lc = cfg.loss
+    jfc = cfg.model.joint.fc
+    act = jfc.activation.name.lower()
+    if not joint_tail_supported(act, jfc.num_hidden_layers, 0.0, False):
+        return None
+    red = lc.reduction.value
+    mxu_dtype = str(dtype).rsplit(".", 1)[-1]
+
+    def joint_tail(model: RNNT, f, f_lens, g, labels, label_lens,
+                   train: bool = False, chunk_size: Optional[int] = None,
+                   weights=None):
+        del train, chunk_size  # no dropout in the kernels; nothing to chunk
+        fp, gp = model.joint_project(f, g)
+        dense = model.joint_net.rest.Dense_0
+        lp_blank, lp_emit = joint_tail_blank_emit(
+            fp, gp, dense.kernel, dense.bias, labels, lc.blank_index, act,
+            20.0, mxu_dtype)
+        ll = rnnt_lattice(lp_blank, lp_emit, f_lens, label_lens)
+        return weighted_reduce(-ll, red, weights)
+
+    return joint_tail
+
+
 # ---------------------------------------------------------------------------
 # Optimizer / schedule
 # ---------------------------------------------------------------------------
@@ -342,6 +413,14 @@ class Task:
     loss_fn: Callable
     lr_schedule: Callable[[int], float]
     steps_per_epoch: int
+    # The T-chunked joint+loss when the config forces it
+    # (``RNNTLossConfig.fused_chunk_size``), else None.
+    fused_loss: Optional[Callable] = None
+    # The same with a per-call chunk, for the memory planner.
+    fused_loss_auto: Optional[Callable] = None
+    # The joint-tail loss (K5, K6), None for a topology the kernels do not
+    # take.
+    joint_tail_loss: Optional[Callable] = None
 
     def build_model(self) -> RNNT:
         return build_model(self.cfg.speech_to_text, self.dtype,
@@ -360,11 +439,14 @@ def build_task(cfg: S.TaskConfig, steps_per_epoch: int = 1000,
         raise NotImplementedError(
             "only RNN-T tasks are ported yet: ROADMAP.md Queue 1, slice 3 "
             "(CTC family)")
+    dtype = dtype or getattr(torch, cfg.train_config.compute_dtype)
     return Task(
-        cfg=cfg, alphabet=Alphabet(stt.alphabet),
-        dtype=dtype or getattr(torch, cfg.train_config.compute_dtype),
+        cfg=cfg, alphabet=Alphabet(stt.alphabet), dtype=dtype,
         in_features=preprocess_out_features(stt.pre_process_steps),
         preprocess=build_preprocess(stt.pre_process_steps),
         loss_fn=build_loss(stt),
         lr_schedule=build_lr_schedule(cfg.train_config, steps_per_epoch),
-        steps_per_epoch=steps_per_epoch)
+        steps_per_epoch=steps_per_epoch,
+        fused_loss=build_fused_transducer_loss(stt),
+        fused_loss_auto=build_fused_transducer_loss(stt, force=True),
+        joint_tail_loss=build_joint_tail_loss(stt, dtype))

@@ -6,7 +6,8 @@ embedding + LSTM prediction net, and the factored joint
 ``joint_project_f`` and ``joint_from_fp`` are separate methods because the
 greedy decoder drives them separately; ``predict`` (full label sequences),
 ``joint`` (the full ``(B, T', U+1, V)`` logits) and ``forward`` are the
-training path.  Train-time dropout (between RNN layers, in the joint, or
+training path, and ``joint_project`` feeds the joint-tail kernels (K5, K6).
+Train-time dropout (between RNN layers, in the joint, or
 ``embedding_dropout``) is not ported yet and raises when it is above 0.
 
 Parameter names and layouts follow Flax, so the JAX package's weights map
@@ -185,9 +186,18 @@ class RNNT(nn.Module):
         """Joint logits ``(B, T, U+1, V)`` (see :meth:`RNNTJoint.forward`)."""
         return self.joint_net(f, g, train)
 
+    def joint_project(self, f: torch.Tensor, g: torch.Tensor):
+        """Factored joint first-layer projections for the joint-tail path:
+        ``(fp (B, T, K), gp (B, U+1, K))``, the bias folded into ``gp``."""
+        return self.joint_net.project(f, g)
+
     def joint_project_f(self, f: torch.Tensor) -> torch.Tensor:
         """Encoder-side joint projection (hoisted out of the decode loop)."""
         return self.joint_net.project_f(f)
+
+    def joint_tail(self, h: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Joint layers after the factored first layer."""
+        return self.joint_net.tail(h, train)
 
     def joint_from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         """Joint logits from a pre-projected encoder row."""

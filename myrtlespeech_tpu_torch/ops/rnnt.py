@@ -12,6 +12,8 @@
   runs the lattice through K3 and K4 instead
   (``ops/cuda/rnnt_kernel.py::rnnt_loss_lattice``); this one is kept for the
   tests.
+- :func:`rnnt_loss_fused`: the joint and the front run one T-chunk at a
+  time, each chunk recomputed in backward, then the lattice (K3, K4).
 
 fp32 throughout the lattice, whatever the logits' dtype; -1e30 stands for
 -inf.
@@ -19,11 +21,13 @@ fp32 throughout the lattice, whatever the logits' dtype; -1e30 stands for
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from myrtlespeech_tpu_torch.ops.cuda.rnnt_kernel import NEG_INF, linrec_scan
+from myrtlespeech_tpu_torch.ops.cuda.rnnt_kernel import (NEG_INF, linrec_scan,
+                                                         rnnt_lattice)
 
 
 class BlankEmitFunction(torch.autograd.Function):
@@ -144,4 +148,41 @@ def rnnt_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
     lp_blank, lp_emit = blank_emit_from_logits(logits, labels, blank_index)
     nll = -rnnt_log_likelihood_from_blank_emit(lp_blank, lp_emit, logit_lens,
                                                label_lens)
+    return weighted_reduce(nll, reduction)
+
+
+def rnnt_loss_fused(f: torch.Tensor, f_lens: torch.Tensor, g: torch.Tensor,
+                    labels: torch.Tensor, label_lens: torch.Tensor,
+                    joint_apply: Callable[[torch.Tensor], torch.Tensor], *,
+                    blank_index: int = 0, reduction: str = "mean",
+                    chunk_size: int = 32) -> torch.Tensor:
+    """Transducer loss fused with the joint network, chunked over T (port of
+    ``myrtlespeech_tpu/ops/rnnt.py:232-279``).
+
+    The joint runs one T-chunk at a time; each chunk reduces at once to its
+    part of the two ``(B, T, U+1)`` lattice inputs, and its activations are
+    recomputed in backward (``torch.utils.checkpoint``), so the full ``(B,
+    T, U+1, H_joint)`` hidden and ``(B, T, U+1, V)`` logits never exist at
+    once.  T is padded to a multiple of the chunk and the padding cut before
+    the lattice, which runs K3 and K4 on the card (their plain versions on
+    the CPU).
+
+    ``f (B, T, H_enc)``, ``g (B, U+1, H_pred)``; ``joint_apply(f_chunk (B,
+    tc, H_enc)) -> logits (B, tc, U+1, V)``.  Returns the reduced loss, as
+    :func:`rnnt_loss`.
+    """
+    B, T, _ = f.shape
+    tc = min(chunk_size, T)
+    pad = (-T) % tc
+    f_pad = torch.nn.functional.pad(f, (0, 0, 0, pad))
+
+    def chunk_fn(f_chunk):
+        return blank_emit_from_logits(joint_apply(f_chunk), labels,
+                                      blank_index)
+
+    parts = [checkpoint(chunk_fn, f_pad[:, i:i + tc], use_reentrant=False)
+             for i in range(0, T + pad, tc)]
+    lp_blank = torch.cat([p[0] for p in parts], dim=1)[:, :T]
+    lp_emit = torch.cat([p[1] for p in parts], dim=1)[:, :T]
+    nll = -rnnt_lattice(lp_blank, lp_emit, f_lens, label_lens)
     return weighted_reduce(nll, reduction)

@@ -8,8 +8,13 @@ projects that footprint from the batch's shapes and, if it exceeds a
 fraction of the card's memory, names the largest T-chunk whose footprint
 fits, for the T-chunked fused joint+loss.
 
-``MYRTLE_HBM_BYTES`` overrides the memory size to plan for (tests, other
-cards), as in the JAX package.
+The decision is per batch shape, deterministic, and overridable, as in the
+JAX package (``myrtlespeech_tpu/run/memory.py:96-102``):
+
+- ``MYRTLE_DISABLE_MEM_PLANNER=1``: always the full joint.
+- ``MYRTLE_JOINT_MEM_FRACTION``: the fraction of the memory the joint may
+  claim (default 0.45).
+- ``MYRTLE_HBM_BYTES``: the memory size to plan for (tests, other cards).
 """
 
 from __future__ import annotations
@@ -65,10 +70,13 @@ def plan_transducer_chunk(B: int, T: int, U1: int, H_joint: int, V: int,
     """None when the full joint fits the budget, else a T-chunk size for the
     fused path: the largest multiple of 8 whose projected footprint fits,
     clamped to [8, T]."""
+    if os.environ.get("MYRTLE_DISABLE_MEM_PLANNER"):
+        return None
     limit = hbm_bytes_limit(device)
     if limit is None:
         return None
-    budget = int(limit * DEFAULT_FRACTION)
+    budget = int(limit * float(
+        os.environ.get("MYRTLE_JOINT_MEM_FRACTION", DEFAULT_FRACTION)))
     need = joint_activation_bytes(B, T, U1, H_joint, V, hidden_bytes,
                                   backward)
     if need <= budget:

@@ -6,12 +6,19 @@ Port of ``myrtlespeech_tpu/run/train.py``: ``TrainState``, ``init_state``,
 eagerly, so the step is a plain function that updates the state in place:
 
     preprocess (SpecAugment at train time) -> RNNT.encode -> RNNT.predict
-    -> full joint -> blank/emit front -> lattice (K3, K4) -> backward
-    (K2 for every LSTM layer, K4 for the lattice) -> clip, L2, Adam
+    -> joint path -> lattice (K3, K4) -> backward -> clip, L2, Adam
 
-Every LSTM layer runs K1 forward and K2 backward on the card.
+Every LSTM layer runs K1 forward and K2 backward on the card.  The joint
+path is chosen per batch (:func:`_select_joint_path`): the full joint and
+blank/emit front when the memory planner projects that it fits; else the
+joint tail in K5 and K6, which never builds the ``(B, T', U+1, .)``
+tensors; or the T-chunked joint when a config forces it or the kernels do
+not take the topology.
 
     python -m myrtlespeech_tpu_torch.run.train --config rnn_t_en --batch 32 --seconds 5 --labels 64 --steps 5
+    python -m myrtlespeech_tpu_torch.run.train --config rnn_t_en --batch 128 --seconds 16.7 --labels 214 --steps 3
+
+(the second is over the budget of an 80 GB card and trains through K5/K6).
 
 runs a config of ``myrtlespeech_tpu_torch/configs`` with seeded random
 weights on seeded noise and labels (as ``bench.py`` makes them) and prints
@@ -33,7 +40,8 @@ from myrtlespeech_tpu_torch.builders.build import (Optimizer, Task,
                                                    build_task, init_params,
                                                    vocab_size)
 from myrtlespeech_tpu_torch.models.rnn_t import RNNT
-from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel, rnnt_kernel
+from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
+                                             rnnt_kernel)
 from myrtlespeech_tpu_torch.run.infer import load_config, resolve_device
 from myrtlespeech_tpu_torch.run.memory import plan_transducer_chunk
 
@@ -87,15 +95,27 @@ def _batch_weights(batch: Batch) -> Optional[torch.Tensor]:
 
 
 def _select_joint_path(task: Task, f: torch.Tensor, g: torch.Tensor,
-                       backward: bool) -> None:
-    """The full joint when the memory planner projects that it fits.
+                       backward: bool
+                       ) -> Tuple[Optional[Callable], Optional[int]]:
+    """The transducer joint+loss path for this batch's shapes:
+    ``(fused_callable_or_None, chunk_or_None)``, with the JAX package's
+    precedence (``myrtlespeech_tpu/run/train.py:130-203``):
 
-    The T-chunked fused joint+loss and the joint-tail kernels (K5, K6) that
-    the JAX package takes otherwise are not ported yet, so a batch over the
-    budget raises.  A config that forces the chunked fusion
-    (``RNNTLossConfig.fused_chunk_size``) gets the full joint too when it
-    fits: the fusion changes memory, not the result.
+    1. A config that sets ``fused_chunk_size`` gets the T-chunked path when
+       training (a memory knob for the backward's activations); at eval the
+       planner decides.
+    2. When the memory planner (``run/memory.py``) projects the full joint
+       over budget: the joint-tail path (K5, K6) when the topology fits the
+       kernels and there is no train-time joint dropout, else the T-chunked
+       path with the planner's chunk.
+    3. Otherwise the full joint ``(None, None)``, the fastest when it fits.
+
+    The card takes the joint-tail path where the JAX package's TPU does.
+    The JAX package's TPU-only guards (its backend check, the kernel's VMEM
+    estimate, the tensor-parallel guard) have no counterpart here.
     """
+    if task.fused_loss is not None and backward:
+        return task.fused_loss, None
     B, T, _ = f.shape
     U1 = g.shape[1]
     jc = task.cfg.speech_to_text.model.joint.fc
@@ -103,24 +123,31 @@ def _select_joint_path(task: Task, f: torch.Tensor, g: torch.Tensor,
     chunk = plan_transducer_chunk(
         B, T, U1, h_eff, vocab_size(task.cfg.speech_to_text),
         hidden_bytes=task.dtype.itemsize, backward=backward, device=f.device)
-    if chunk is not None:
-        raise NotImplementedError(
-            f"the full joint of (B, T', U+1) = {(B, T, U1)} is projected "
-            "over the memory budget, and the planner-fused path (chunked "
-            f"joint, chunk {chunk}; K5 and K6) is not ported yet: "
-            "ROADMAP.md Queue 1, slice 2")
+    if chunk is None:
+        return None, None
+    if task.joint_tail_loss is not None and joint_kernel.joint_tail_supported(
+            jc.activation.name.lower(), jc.num_hidden_layers, jc.dropout,
+            backward):
+        return task.joint_tail_loss, None
+    return task.fused_loss_auto, chunk
 
 
 def _forward(task: Task, model: RNNT, batch: Batch, train: bool,
              gen: Optional[torch.Generator] = None
-             ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """preprocess -> encode -> predict -> joint -> mean loss; returns
-    ``(loss, (logits, f_lens))``."""
+             ) -> Tuple[torch.Tensor, Tuple[Optional[torch.Tensor],
+                                            torch.Tensor]]:
+    """preprocess -> encode -> predict -> joint path -> mean loss; returns
+    ``(loss, (logits, f_lens))``, ``logits`` None on a fused path."""
     feats, flens = task.preprocess(batch["wav"], batch["wav_lens"], train,
                                    gen)
     f, f_lens = model.encode(feats, flens, train)
     g = model.predict(batch["labels"], batch["label_lens"], train)
-    _select_joint_path(task, f, g, backward=train)
+    fused, chunk = _select_joint_path(task, f, g, backward=train)
+    if fused is not None:
+        loss = fused(model, f, f_lens, g, batch["labels"],
+                     batch["label_lens"], train, chunk_size=chunk,
+                     weights=_batch_weights(batch))
+        return loss, (None, f_lens)
     logits = model.joint(f, g, train)
     loss = task.loss_fn(logits, f_lens, batch["labels"], batch["label_lens"],
                         weights=_batch_weights(batch))
@@ -210,7 +237,9 @@ def kernel_launches() -> Dict[str, int]:
     return {"k1": lstm_kernel.lstm_fwd.launches,
             "k2": lstm_kernel.lstm_bwd.launches,
             "k3": rnnt_kernel.rnnt_lattice_fwd.launches,
-            "k4": rnnt_kernel.rnnt_lattice_bwd.launches}
+            "k4": rnnt_kernel.rnnt_lattice_bwd.launches,
+            "k5": joint_kernel.joint_tail_fwd.launches,
+            "k6": joint_kernel.joint_tail_bwd.launches}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from myrtlespeech_tpu_torch.ops import rnn as port_rnn
+from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as port_k56
 from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as port_k1
 from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as port_k34
 
@@ -26,7 +27,7 @@ FP32_TOL = 1e-3
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 to K4 are CUDA kernels")
+        pytest.skip("needs a CUDA card: K1 to K6 are CUDA kernels")
     return torch.device("cuda")
 
 
@@ -202,3 +203,49 @@ def test_lstm_scan_gradients_on_the_card_match_the_cpu(reverse):
     # each: 2e-2 of each gradient's largest magnitude.
     for name, g, c in zip(("x", "w_ih", "w_hh", "b"), card, cpu):
         _close_to_scale(g.cpu(), c, BF16_TOL, name)
+
+
+# K5 against its plain version: the same bf16 h and fp32 sums in another
+# order (mma tiles; an online log-sum-exp over 32-column chunks): 1e-5 of
+# the outputs' magnitude (5.5e-7 read on an H100).  K6 rounds dlogits to
+# bf16 as the plain version does, but a sum taken in another order can land
+# one element on the neighbouring bf16 value (2^-8 of it) before the
+# products, and dfp and dgp come back in bf16, where one rounding step is up
+# to 2^-7 of the largest element: 2e-2 of each gradient's largest magnitude
+# (6.8e-3 read on an H100).
+K5_TOL = 1e-5
+K6_TOL = 2e-2
+
+
+def _joint_tail_inputs(B, T, U1, K, V, seed, dev):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    fp, gp = f32(B, T, K).to(torch.bfloat16), f32(B, U1, K).to(torch.bfloat16)
+    w2 = (f32(K, V) / np.sqrt(K)).to(torch.bfloat16)
+    b2 = f32(V) * 0.1
+    lab = torch.from_numpy(rng.integers(0, V, (B, U1)).astype(np.int32)).to(dev)
+    return fp, gp, w2, b2, lab, f32(B, T, U1), f32(B, T, U1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1,K,V,act", [
+    (2, 5, 3, 16, 11, "relu"), (3, 37, 19, 512, 29, "relu"),
+    (2, 20, 9, 200, 29, "hardtanh"), (2, 18, 10, 64, 29, "identity"),
+    (2, 17, 9, 512, 130, "relu"), (2, 9, 5, 512, 1024, "relu")])
+def test_k5_k6_match_plain_versions(B, T, U1, K, V, act):
+    dev = _card()
+    fp, gp, w2, b2, lab, gb, ge = _joint_tail_inputs(B, T, U1, K, V, 5, dev)
+    args = (fp, gp, w2, b2, lab)
+    cfg = (0, act, 20.0, "bfloat16")
+    fwd = port_k56.joint_tail_fwd(*args, *cfg)
+    bwd = port_k56.joint_tail_bwd(*args, gb, ge, *cfg)
+    torch.cuda.synchronize()
+    fwd_ref = port_k56.joint_tail_fwd_reference(*args, *cfg)
+    bwd_ref = port_k56.joint_tail_bwd_reference(*args, gb, ge, *cfg)
+    for name, got, want in zip(("lp_blank", "lp_emit"), fwd, fwd_ref):
+        assert got.shape == want.shape == (B, T, U1)
+        _close_to_scale(got, want, K5_TOL, name)
+    for name, got, want in zip(("dfp", "dgp", "dw2", "db2"), bwd, bwd_ref):
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        _close_to_scale(got.float(), want.float(), K6_TOL, name)

@@ -112,6 +112,14 @@ def test_kernel_module_imports_and_runs_without_nvcc_or_card():
         "a, ll = r.rnnt_lattice_fwd(lp, lp, n, n)\n"
         "r.rnnt_lattice_bwd(lp, lp, n, n, a, ll, torch.ones(2))\n"
         "assert r.rnnt_lattice_fwd.launches == r.rnnt_lattice_bwd.launches == 0\n"
+        "from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as j\n"
+        "fp, w2 = torch.zeros(2, 3, 8), torch.zeros(8, 5)\n"
+        "lab = torch.zeros(2, 4, dtype=torch.int32)\n"
+        "j.joint_tail_fwd(fp, torch.zeros(2, 4, 8), w2, torch.zeros(5), lab,\n"
+        "                 0, 'relu', 20.0, 'float32')\n"
+        "j.joint_tail_bwd(fp, torch.zeros(2, 4, 8), w2, torch.zeros(5), lab,\n"
+        "                 lp, lp, 0, 'relu', 20.0, 'float32')\n"
+        "assert j.joint_tail_fwd.launches == j.joint_tail_bwd.launches == 0\n"
         "assert build.load_library.cache_info().currsize == 0\n")
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_VISIBLE_DEVICES="")

@@ -242,13 +242,46 @@ def test_planner_sees_no_budget_on_the_cpu(monkeypatch):
                                              device="cpu") is None
 
 
-def test_full_joint_over_the_budget_raises(monkeypatch, jax_side):
-    _, jstate, batch = jax_side
+@pytest.mark.parametrize("disable_joint_tail", [False, True])
+def test_over_the_budget_step_matches_jax(monkeypatch, jax_side,
+                                          disable_joint_tail):
+    """A step whose full joint is projected over the budget: the port takes
+    the joint-tail path (K5/K6's plain versions here), or the chunked path
+    when ``MYRTLE_DISABLE_PALLAS_JOINT`` is set; the JAX package on the CPU
+    takes its chunked path (chunk 8 over T'=13).  The loss and every
+    gradient leaf agree in fp32."""
+    tasks, jstate, batch = jax_side
+    monkeypatch.setenv("MYRTLE_HBM_BYTES", str(10 ** 6))
+    if disable_joint_tail:
+        monkeypatch.setenv("MYRTLE_DISABLE_PALLAS_JOINT", "1")
+    else:
+        monkeypatch.delenv("MYRTLE_DISABLE_PALLAS_JOINT", raising=False)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (loss_j, (logits_j, _, _)), grads_j = jax.value_and_grad(
+        lambda p: jax_forward(tasks["float32"], p, {}, jax.random.PRNGKey(1),
+                              jb, True), has_aux=True)(jstate.params)
+    assert logits_j is None  # the JAX step took a fused path
     task, state = _port("float32", _flat(jstate.params))
     tb = port_train.to_device(batch, "cpu")
-    monkeypatch.setenv("MYRTLE_HBM_BYTES", str(10 ** 6))
-    with pytest.raises(NotImplementedError, match="K5 and K6"):
-        port_train._forward(task, state.model, tb, True, state.gen)
+    fused, chunk = port_train._select_joint_path(
+        task, torch.zeros((B, 13, 256)), torch.zeros((B, 7, 128)), True)
+    want_path = (task.fused_loss_auto, 8) if disable_joint_tail \
+        else (task.joint_tail_loss, None)
+    assert fused is want_path[0] and chunk == want_path[1]
+    loss_p, (logits, _) = port_train._forward(task, state.model, tb, True,
+                                              state.gen)
+    assert logits is None
+    loss_p.backward()
+    assert abs(float(loss_p.detach()) - float(loss_j)) \
+        <= FP32_TOL * abs(float(loss_j))
+    want = _flat(grads_j)
+    got = flat_from_params({n: p.grad for n, p in
+                            state.model.named_parameters()})
+    assert sorted(got) == sorted(want)
+    for name in want:
+        scale = np.abs(want[name]).max()
+        err = np.abs(got[name] - want[name]).max()
+        assert err <= FP32_TOL * scale, (name, err, scale)
 
 
 def test_weights_round_trip(jax_side):
@@ -273,7 +306,8 @@ def test_train_cli_runs_on_the_cpu_when_asked(capsys):
     for x in lines:
         assert np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
         assert x["device"] == "cpu"
-        assert x["launches"] == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+        assert x["launches"] == {"k1": 0, "k2": 0, "k3": 0, "k4": 0,
+                                 "k5": 0, "k6": 0}
     assert lines[0]["lr"] == 0.0  # warmup starts at 0
 
 
