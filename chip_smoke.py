@@ -60,6 +60,27 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              out-of-memory error) as the yardstick.  Then the medium config
              (which forces the chunked path) from seeded weights, warmup
              off, takes 20 steps on one repeated batch: its loss must fall.
+    After ``k56``, ``k78``: K7 and K8 (the CTC lattice forward and
+             backward) against their plain versions on the DeepSpeech2
+             step's lattice (B=32, T'=836, S=429), a small one with an empty
+             target and the blank last, and one with U=700 (S=1401, above a
+             block's 1,024 threads): errors, kernel and plain times, bounds,
+             and PyTorch's ``F.ctc_loss`` forward and backward against the
+             port's whole CTC loss on the same logits.
+    After ``train_long``, ``train_ctc``: ``deep_speech_2_en`` at full width
+             trains on B=32 x 16.7 s with 214 labels through
+             ``make_train_step``: K1 and K2 8,360 launches a step at H=800,
+             K7 and K8 one, K3-K6 none, no plain version; finite loss and
+             gradient norm, every parameter and BatchNorm statistic moved
+             after step 1; step time, split, peak memory, one traced step;
+             one K1 and K2 call of each shape and the K7 and K8 calls
+             replayed against their plain versions, with ``F.ctc_loss``'s
+             forward and backward on the step's logits as the yardstick; the
+             step's loss and gradient norm against the same batch with the
+             plain versions forced on the card; a finite eval loss.  Then
+             ``ctc_falls``: ``synthetic_ctc`` from seeded weights, warmup
+             off, 20 steps on one repeated batch: the loss must fall below
+             half its start.
 10. trained  the trained medium RNN-T (committed npz) decodes its
              256-utterance eval split greedily at B=32; its WER must lie
              within 0.01 of the JAX package's greedy WER for the same weights;
@@ -166,7 +187,7 @@ K56_OUTPUTS = ("lp_blank", "lp_emit", "dfp", "dgp", "dw2", "db2")
 # full joint fits, so K5 and K6 do not run.
 TRAIN_LABELS = 64
 TRAIN_LAUNCHES = {"k1": 1885, "k2": 1885, "k3": 1, "k4": 1, "k5": 0,
-                  "k6": 0}
+                  "k6": 0, "k7": 0, "k8": 0}
 TRAIN_STEPS = 5
 MEDIUM_STEPS = 20
 
@@ -177,10 +198,41 @@ MEDIUM_STEPS = 20
 # joint tail: K1 and K2 2 x 1671 + 3 x 836 + 2 x 215 times a step, K3 to K6
 # once.
 LONG_BATCH, LONG_SECONDS, LONG_LABELS = 128, 16.7, 214
-LONG_LAUNCHES = {"k1": 6280, "k2": 6280, "k3": 1, "k4": 1, "k5": 1, "k6": 1}
+LONG_LAUNCHES = {"k1": 6280, "k2": 6280, "k3": 1, "k4": 1, "k5": 1, "k6": 1,
+                 "k7": 0, "k8": 0}
 LONG_STEPS = 3
 
 FLAGSHIP_BATCH, FLAGSHIP_SECONDS = 32, 5.0
+
+# The DeepSpeech2 train step: deep_speech_2_en at B=32 x 16.7 s (its
+# max_duration_s) with 214 labels: T=1671 frames, T'=836 after the first
+# conv's stride 2, S=429 lattice columns.  K1 and K2 run once per step of
+# each of the 10 LSTM directions (5 BiLSTM-800 layers), 8,360 times a step;
+# K7 and K8 once; no transducer kernel runs.
+CTC_BATCH, CTC_SECONDS, CTC_LABELS = 32, 16.7, 214
+CTC_LAUNCHES = {"k1": 8360, "k2": 8360, "k3": 0, "k4": 0, "k5": 0, "k6": 0,
+                "k7": 1, "k8": 1}
+CTC_STEPS = 3
+CTC_FALLS_STEPS = 20
+
+# K7 and K8 against their plain versions: the same fp32 stencil in the same
+# order; CUDA's expf/log1pf and the library's may differ by an ulp, which the
+# chain of rows compounds: 1e-5 of the magnitude (plus 1e-3 absolute) for
+# alphas and the log-likelihood (some 3e3 at the DeepSpeech2 lattice), 1e-4
+# absolute for the occupancy gradients (in [0, 1] times |g|).  PyTorch's
+# F.ctc_loss sums its own recursion in another order: its per-example losses
+# within 1e-4 of ours.
+K7_RTOL, K7_ATOL, K8_ATOL = 1e-5, 1e-3, 1e-4
+CTC_LIBRARY_RTOL = 1e-4
+
+# The DeepSpeech2 step with the kernels against the same step with the plain
+# versions forced on the card (same batch, weights and SpecAugment masks).
+# K1 and K2 differ from their plain versions by a bf16 step here and there
+# (K1_TOL, K2_TOL), which ten LSTM directions and four BatchNorms carry into
+# the logits; K7 and K8 are bit-equal to theirs.  In two runs on an H100 the
+# loss read 2.1e-7 and 3.7e-6 apart and the gradient norm 3.2e-4 and 6.4e-5,
+# relative (PERF.md): 1e-4 and 5e-3 leave some 15-25x room.
+CTC_PLAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3}
 
 
 def emit(phase: str, **fields) -> None:
@@ -234,28 +286,33 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
 def device_trace(fn):
     """Run ``fn`` once under ``torch.profiler``.  Returns the wall ms of the
     call (profiler overhead included) and its device events as ``(name,
-    start_us, end_us)``: kernels, copies and memsets."""
+    start_us, end_us)``: kernels, copies and memsets.  A trace has come back
+    with no device event at all (once, of a call of ``F.ctc_loss``'s two
+    kernels); then ``fn`` runs traced again, at most twice more."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-             for e in events
-             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-             and "dur" in e]
-    if not spans:
-        raise AssertionError("torch.profiler traced no device event")
-    return wall_ms, spans
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        spans = [(e["name"], float(e["ts"]),
+                  float(e["ts"]) + float(e["dur"]))
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "dur" in e]
+        if spans:
+            return wall_ms, spans
+    raise AssertionError("torch.profiler traced no device event, three "
+                         "times")
 
 
 def span_ms(spans) -> float:
@@ -689,6 +746,134 @@ def phase_k56(dev):
         torch.cuda.empty_cache()
 
 
+def k78_work(B: int, T: int, S: int):
+    """(fp32 operations, bytes) of one K7 and one K8 call: some 15
+    operations per cell for the stencil (two logaddexps of max, difference,
+    |.|, exp, log1p and add; the add of lp), K8 six more for the occupancy
+    (three adds, exp, multiply); the bytes that must move: K7 reads lp_ext,
+    can_skip and the lengths once and writes alphas and ll once, K8 reads
+    lp_ext, alphas, can_skip, the lengths, ll and g once and writes the
+    gradient once.  Every frame runs, padded ones included, so the work does
+    not depend on the lengths."""
+    cells = B * T * S
+    k7 = (15.0 * cells, 2 * cells * 4 + B * S * 4 + 2 * B * 4)
+    k8 = (21.0 * cells, 3 * cells * 4 + B * S * 4 + 3 * B * 4)
+    return k7, k8
+
+
+def _ctc_case(B, T, U, V, blank, seed, dev, empty_row: bool = False):
+    """Random logits (B, T, V) and labels (never the blank) with ragged
+    frame and label lengths, the first row full and 2 label_len <=
+    logit_len, so that every row has a path; with ``empty_row`` the last row
+    has an empty target."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, V)).astype(np.float32)
+    fl = rng.integers(3 * T // 4, T + 1, B).astype(np.int32)
+    fl[0] = T
+    lab = rng.integers(0, V - 1, (B, U))
+    lab = (np.where(lab >= blank, lab + 1, lab) % V).astype(np.int32)
+    ul = np.minimum(rng.integers(3 * U // 4, U + 1, B), fl // 2).astype(
+        np.int32)
+    ul[0] = min(U, T // 2)
+    if empty_row:
+        ul[-1] = 0
+    return tuple(torch.from_numpy(a).to(dev) for a in (logits, fl, lab, ul))
+
+
+def ctc_errors(fwd, bwd, fwd_ref, bwd_ref, label: str):
+    """Largest errors of K7 (alphas of reachable cells, ll) and K8 (the
+    gradient) against the plain versions; raises beyond tolerance."""
+    alphas, ll = fwd
+    a_ref, ll_ref = fwd_ref
+    reach = a_ref > -1e29
+    errs = {"alphas": (alphas[reach] - a_ref[reach]).abs().max().item(),
+            "ll": (ll - ll_ref).abs().max().item(),
+            "grad": (bwd - bwd_ref).abs().max().item()}
+    ok = (bool((alphas[~reach] < -1e29).all())
+          and torch.allclose(alphas[reach], a_ref[reach], rtol=K7_RTOL,
+                             atol=K7_ATOL)
+          and torch.allclose(ll, ll_ref, rtol=K7_RTOL, atol=K7_ATOL)
+          and errs["grad"] <= K8_ATOL)
+    if not ok:
+        raise AssertionError(f"K7/K8 {label}: max |err| {errs} beyond rtol "
+                             f"{K7_RTOL} atol {K7_ATOL} (K7), atol "
+                             f"{K8_ATOL} (K8)")
+    return errs
+
+
+def _library_ctc(logits, logit_lens, labels, label_lens, blank):
+    """Yardstick only, never called by the port: PyTorch's ``F.ctc_loss``
+    on the log-softmax of ``logits``, per example."""
+    return torch.nn.functional.ctc_loss(
+        torch.log_softmax(logits.float(), -1).transpose(0, 1), labels.long(),
+        logit_lens.long(), label_lens.long(), blank=blank, reduction="none")
+
+
+def phase_k78(dev):
+    """K7 and K8 against their plain versions, timed: on the DeepSpeech2
+    step's lattice, a small one with an empty target and the blank last,
+    and one with S=1401 (two columns a thread).  Times are CUDA-event
+    medians of the wrapper calls; the yardstick is ``F.ctc_loss``'s forward
+    and backward (from the logits, log-softmax included) against the port's
+    whole CTC loss, forward and backward, on the same logits."""
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as k
+
+    shapes = {"ds2": (32, 836, 214, 29, 0, False),
+              "empty_blank_last": (5, 50, 12, 29, 28, True),
+              "U700": (4, 1500, 700, 29, 0, False)}
+    for i, (label, (B, T, U, V, blank, empty)) in enumerate(shapes.items()):
+        logits, fl, lab, ul = _ctc_case(B, T, U, V, blank, 50 + i, dev,
+                                        empty)
+        lp, skip = k.ctc_lattice_inputs(logits, fl, lab, ul, blank)
+        g = torch.full((B,), -1.0 / B, device=dev)  # d mean(-ll) / d ll
+        fwd = k.ctc_lattice_fwd(lp, skip, ul)
+        bwd = k.ctc_lattice_bwd(lp, skip, ul, *fwd, g)
+        torch.cuda.synchronize()
+        fwd_ref = k.ctc_lattice_fwd_reference(lp, skip, ul)
+        bwd_ref = k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd_ref, g)
+        errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, label)
+        lib_nll = _library_ctc(logits, fl, lab, ul, blank)
+        lib_rel = ((lib_nll + fwd[1]).abs() / lib_nll.abs()).max().item()
+        if not lib_rel <= CTC_LIBRARY_RTOL:
+            raise AssertionError(f"K7 {label}: F.ctc_loss differs by {lib_rel}"
+                                 f" relative, beyond {CTC_LIBRARY_RTOL}")
+        del fwd_ref, bwd_ref
+
+        def port_loss():
+            x = logits.detach().requires_grad_()
+            k.ctc_loss_lattice(x, fl, lab, ul, blank).sum().backward()
+
+        def library_loss():
+            x = logits.detach().requires_grad_()
+            _library_ctc(x, fl, lab, ul, blank).sum().backward()
+
+        times = {
+            "k7_ms": cuda_ms(lambda: k.ctc_lattice_fwd(lp, skip, ul), 10),
+            "k8_ms": cuda_ms(lambda: k.ctc_lattice_bwd(lp, skip, ul, *fwd, g),
+                             10),
+            "k7_plain_ms": cuda_ms(lambda: k.ctc_lattice_fwd_reference(
+                lp, skip, ul), 2),
+            "k8_plain_ms": cuda_ms(lambda: k.ctc_lattice_bwd_reference(
+                lp, skip, ul, *fwd, g), 2),
+            "port_loss_fwd_bwd_ms": cuda_ms(port_loss, 10),
+            "library_ms": cuda_ms(library_loss, 10)}
+        S = 2 * U + 1
+        (f7, n7), (f8, n8) = k78_work(B, T, S)
+        b7, by7 = bound(f7, n7, peak=PEAK_FP32_FLOPS)
+        b8, by8 = bound(f8, n8, peak=PEAK_FP32_FLOPS)
+        emit("k78", shape=label, B=B, T=T, U=U, S=S, V=V, blank=blank,
+             empty_targets=int((ul == 0).sum()), max_abs_err=errs,
+             library_rel_diff=lib_rel,
+             tolerance={"k7_rtol": K7_RTOL, "k7_atol": K7_ATOL,
+                        "k8_atol": K8_ATOL, "library_rtol": CTC_LIBRARY_RTOL},
+             **times,
+             library="F.ctc_loss forward + backward from the logits, "
+                     "against log_softmax + gather + K7 + K8 + scatter",
+             k7_bound_ms=b7, k7_bound_by=by7, k8_bound_ms=b8, k8_bound_by=by8)
+        del logits, lp, skip, fwd, bwd
+        torch.cuda.empty_cache()
+
+
 def stage_ms(tr, wav, lens, runs: int = 3):
     """Median host-clock ms of features, encoder and greedy decode (joint
     projection plus the loop), each ending in a synchronise."""
@@ -950,14 +1135,16 @@ def phase_main_path_k1(dev, flagship):
 
 
 def _train_kernels():
-    from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
-                                                 rnnt_kernel)
+    from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, joint_kernel,
+                                                 lstm_kernel, rnnt_kernel)
 
     return {"k1": lstm_kernel.lstm_fwd, "k2": lstm_kernel.lstm_bwd,
             "k3": rnnt_kernel.rnnt_lattice_fwd,
             "k4": rnnt_kernel.rnnt_lattice_bwd,
             "k5": joint_kernel.joint_tail_fwd,
-            "k6": joint_kernel.joint_tail_bwd}
+            "k6": joint_kernel.joint_tail_bwd,
+            "k7": ctc_kernel.ctc_lattice_fwd,
+            "k8": ctc_kernel.ctc_lattice_bwd}
 
 
 def _zero_counts():
@@ -970,21 +1157,24 @@ def _read_counts():
 
 
 def _plain_guard():
-    from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
-                                                 rnnt_kernel)
+    from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, joint_kernel,
+                                                 lstm_kernel, rnnt_kernel)
 
     return PlainGuard([(lstm_kernel, "lstm_fwd_reference"),
                        (lstm_kernel, "lstm_bwd_reference"),
                        (rnnt_kernel, "rnnt_lattice_fwd_reference"),
                        (rnnt_kernel, "rnnt_lattice_bwd_reference"),
                        (joint_kernel, "joint_tail_fwd_reference"),
-                       (joint_kernel, "joint_tail_bwd_reference")])
+                       (joint_kernel, "joint_tail_bwd_reference"),
+                       (ctc_kernel, "ctc_lattice_fwd_reference"),
+                       (ctc_kernel, "ctc_lattice_bwd_reference")])
 
 
 # Kernel names in a profiler trace.
 TRACE_NAMES = {"k1": "lstm_step_kernel", "k2": "lstm_bwd_step_kernel",
                "k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel",
-               "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel"}
+               "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel",
+               "k7": "ctc_fwd_kernel", "k8": "ctc_bwd_kernel"}
 
 
 def trace_step(fn, want):
@@ -1597,6 +1787,335 @@ def phase_medium_falls(dev):
                              f"{losses}")
 
 
+class ForcePlain:
+    """Runs the plain versions in place of the kernels (K1, K2, K7, K8) on
+    the card while it is entered: the wrappers' callers look them up at call
+    time."""
+
+    def __init__(self):
+        from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel, lstm_kernel
+
+        self.swaps = [(lstm_kernel, "lstm_fwd"), (lstm_kernel, "lstm_bwd"),
+                      (ctc_kernel, "ctc_lattice_fwd"),
+                      (ctc_kernel, "ctc_lattice_bwd")]
+
+    def __enter__(self):
+        self.real = [getattr(m, n) for m, n in self.swaps]
+        for m, n in self.swaps:
+            setattr(m, n, getattr(m, f"{n}_reference"))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), real in zip(self.swaps, self.real):
+            setattr(m, n, real)
+        return False
+
+
+def _loss_and_grad_norm(task, model, batch, seed: int = 123):
+    """One train-mode forward and backward (SpecAugment from a fresh
+    generator of ``seed``): the loss and the global gradient norm."""
+    from myrtlespeech_tpu_torch.builders.build import global_norm
+    from myrtlespeech_tpu_torch.run import train
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = train._forward(task, model, batch, True,
+                             torch.Generator().manual_seed(seed))
+    loss.backward()
+    gnorm = global_norm([p.grad for p in model.parameters()])
+    out = float(loss.detach()), float(gnorm)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_train_ctc(dev):
+    """deep_speech_2_en at full width trains on B=32 x 16.7 s with 214
+    labels: K1 and K2 launch 8,360 times a step at H=800, K7 and K8 once, no
+    plain version runs; finite loss, every parameter and BatchNorm statistic
+    moved after the first timed step (at the end of warmup); step time,
+    split, peak memory; one traced step
+    (device time by kernel, idle share); the step's K1 and K2 (one call of
+    each shape), K7 and K8 calls replayed against their plain versions, and
+    F.ctc_loss on the step's own logits as the yardstick; the step's loss
+    and gradient norm against the plain versions forced on the card; the
+    eval loss.  Returns K1's and K2's DeepSpeech2 figures and the kernels
+    line's K7 and K8 entries."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel, lstm_kernel
+    from myrtlespeech_tpu_torch.run import train
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    B, secs, U = CTC_BATCH, CTC_SECONDS, CTC_LABELS
+    task = build_task(load_config("deep_speech_2_en"))
+    t0 = time.perf_counter()
+    state = train.init_state(task, seed=0, device=str(dev))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    batch = train.to_device(train.example_batch(B, secs, U, 0), dev)
+    step = train.make_train_step(task)
+    state, m = step(state, batch)  # warm-up: step 0, whose lr is 0
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # The timed steps run from the end of the schedule's warmup, at the
+    # config's rate of 3e-4: at step 1 the rate is 3e-7, and an update of a
+    # BatchNorm scale of 1 rounds away under half an fp32 step.
+    state.step = task.cfg.train_config.lr_warmup_steps
+    before = {n: t.detach().clone()
+              for n, t in state.model.state_dict().items()}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses, gnorms, lrs = [], [], [], []
+    with _plain_guard() as guard:
+        _zero_counts()
+        for i in range(CTC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            lrs.append(m["lr"])
+            if i == 0:
+                moved = {n: (t.detach() - before[n]).abs().max().item()
+                         for n, t in state.model.state_dict().items()}
+        launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del before
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on the CTC train path: "
+                             f"{dict(guard.calls)}")
+    want = {k: n * CTC_STEPS for k, n in CTC_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"launches over {CTC_STEPS} CTC steps: "
+                             f"{launches}, expected {want}")
+    if not all(np.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"CTC step loss {losses} or grad_norm {gnorms} "
+                             "not finite")
+    still = [n for n, v in moved.items() if not v > 0]
+    if still:
+        raise AssertionError(f"after the first timed step these did not "
+                             f"move: {still}")
+
+    # Stage split of one more step, host clock, synced at each boundary.
+    torch.cuda.synchronize()
+    split = [time.perf_counter()]
+    state.optimizer.zero_grad()
+    loss, _ = train._forward(task, state.model, batch, True, state.gen)
+    torch.cuda.synchronize()
+    split.append(time.perf_counter())
+    loss.backward()
+    torch.cuda.synchronize()
+    split.append(time.perf_counter())
+    state.optimizer.step(state.step)
+    state.step += 1
+    torch.cuda.synchronize()
+    split.append(time.perf_counter())
+    del loss
+
+    traced_wall_ms, spans, kernel_spans, retries = trace_step(
+        lambda: step(state, batch), CTC_LAUNCHES)
+    by_kernel = collections.Counter()
+    for name, s, e in spans:
+        by_kernel[name[:80]] += (e - s) / 1e3
+    busy = busy_ms(spans)
+    kernel_ms = {k: span_ms(sp) for k, sp in kernel_spans.items()}
+
+    # The step's calls, for the replays: one K1 and K2 call of each shape,
+    # K7's and K8's one call each, and the CTC loss's own inputs.
+    calls = record_many({"k1": (lstm_kernel, "lstm_fwd"),
+                         "k2": (lstm_kernel, "lstm_bwd"),
+                         "k7": (ctc_kernel, "ctc_lattice_fwd"),
+                         "k8": (ctc_kernel, "ctc_lattice_bwd"),
+                         "loss": (ctc_kernel, "ctc_loss_lattice")},
+                        lambda: step(state, batch))
+    torch.cuda.synchronize()
+    work = [k1_work(*a[0].shape[:2], a[0].shape[2] // 4) for a in calls["k1"]]
+    k1_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    work = [k2_work(*a[4].shape[:2], a[4].shape[2] // 4, bool(a[8]))
+            for a in calls["k2"]]
+    k2_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    k1_calls = _first_per_shape(calls.pop("k1"), lambda a: a[0].shape)
+    k2_calls = _first_per_shape(calls.pop("k2"), lambda a: a[4].shape)
+    (k7_args,), (k8_args,), (loss_args,) = (calls["k7"], calls["k8"],
+                                            calls["loss"])
+    del calls
+    k1_errs = dict.fromkeys(K1_OUTPUTS, 0.0)
+    k2_errs, k2_rel = {}, {}
+    with torch.no_grad():
+        for args in k1_calls.values():
+            for n, e in k1_errors(lstm_kernel.lstm_fwd(*args),
+                                  lstm_kernel.lstm_fwd_reference(*args),
+                                  "CTC step").items():
+                k1_errs[n] = max(k1_errs[n], e)
+        check_errors(k1_errs, "CTC step")
+        _, k1_plain = device_trace(lambda: [
+            lstm_kernel.lstm_fwd_reference(*a) for a in k1_calls.values()])
+        for args in k2_calls.values():
+            e, r = k2_errors(lstm_kernel.lstm_bwd(*args),
+                             lstm_kernel.lstm_bwd_reference(*args),
+                             "CTC step")
+            for n in e:
+                k2_errs[n] = max(k2_errs.get(n, 0.0), e[n])
+                k2_rel[n] = max(k2_rel.get(n, 0.0), r[n])
+        _, k2_plain = device_trace(lambda: [
+            lstm_kernel.lstm_bwd_reference(*a) for a in k2_calls.values()])
+        k1_shapes = [list(a[0].shape) for a in k1_calls.values()]
+        k2_shapes = [list(a[4].shape) for a in k2_calls.values()]
+        del k1_calls, k2_calls
+        fwd = ctc_kernel.ctc_lattice_fwd(*k7_args)
+        bwd = ctc_kernel.ctc_lattice_bwd(*k8_args)
+        fwd_ref = ctc_kernel.ctc_lattice_fwd_reference(*k7_args)
+        bwd_ref = ctc_kernel.ctc_lattice_bwd_reference(*k8_args)
+        k78_errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, "CTC step")
+        del fwd, bwd, fwd_ref, bwd_ref
+        _, k7_plain = device_trace(
+            lambda: ctc_kernel.ctc_lattice_fwd_reference(*k7_args))
+        _, k8_plain = device_trace(
+            lambda: ctc_kernel.ctc_lattice_bwd_reference(*k8_args))
+
+    # Yardstick: F.ctc_loss's forward (from the log-probs) and its backward
+    # on the step's own logits, each traced; log_softmax is left out of
+    # both, as it is outside K7 and K8.
+    logits, logit_lens, labels, label_lens, blank = loss_args
+    logp = torch.log_softmax(logits.detach().float(), -1).transpose(0, 1)
+    logp = logp.detach().requires_grad_()
+    lib_args = (labels.long(), logit_lens.long(), label_lens.long())
+    torch.nn.functional.ctc_loss(logp, *lib_args, blank=blank,
+                                 reduction="none")  # warm-up
+    _, lib_fwd = device_trace(lambda: torch.nn.functional.ctc_loss(
+        logp, *lib_args, blank=blank, reduction="none"))
+    lib_nll = torch.nn.functional.ctc_loss(logp, *lib_args, blank=blank,
+                                           reduction="none")
+    ones = torch.ones_like(lib_nll)
+    torch.autograd.grad(lib_nll, logp, ones, retain_graph=True)  # warm-up
+    _, lib_bwd = device_trace(lambda: torch.autograd.grad(
+        lib_nll, logp, ones, retain_graph=True))
+    del logp, lib_nll, loss_args, logits
+    Bk, Tk, S = k7_args[0].shape
+    (f7, n7), (f8, n8) = k78_work(Bk, Tk, S)
+    b7, by7 = bound(f7, n7, peak=PEAK_FP32_FLOPS)
+    b8, by8 = bound(f8, n8, peak=PEAK_FP32_FLOPS)
+    del k7_args, k8_args
+    torch.cuda.empty_cache()
+
+    # The whole step's loss and gradient norm, kernels against the plain
+    # versions forced on the card (same batch, weights, SpecAugment draws).
+    _zero_counts()
+    kern = _loss_and_grad_norm(task, state.model, batch)
+    kern_launches = _read_counts()
+    _zero_counts()
+    with ForcePlain():
+        plain = _loss_and_grad_norm(task, state.model, batch)
+    plain_launches = _read_counts()
+    rel = {"loss": abs(kern[0] - plain[0]) / abs(plain[0]),
+           "grad_norm": abs(kern[1] - plain[1]) / abs(plain[1])}
+    if kern_launches["k7"] != 1 or any(plain_launches.values()):
+        raise AssertionError(f"kernel run launches {kern_launches}, plain "
+                             f"run {plain_launches}")
+    if not all(rel[k] <= CTC_PLAIN_TOL[k] for k in rel):
+        raise AssertionError(f"CTC step with kernels {kern} against plain "
+                             f"{plain}: relative {rel} beyond "
+                             f"{CTC_PLAIN_TOL}")
+
+    _zero_counts()
+    eval_loss = float(train.eval_step_body(task)(state, batch)["loss"])
+    eval_launches = _read_counts()
+    if not np.isfinite(eval_loss) or eval_launches["k7"] != 1 \
+            or eval_launches["k8"] != 0:
+        raise AssertionError(f"eval loss {eval_loss}, launches "
+                             f"{eval_launches}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ms = 1e3 * statistics.median(times)
+    emit("train_ctc", config="deep_speech_2_en", batch=B, seconds=secs,
+         labels=U, lattice=[Bk, Tk, S], parameters=n_params,
+         setup_s=setup_s, ms_per_step=ms, ms_runs=[1e3 * t for t in times],
+         audio_s_per_s=B * secs / (ms / 1e3), losses=losses,
+         grad_norms=gnorms, lrs=lrs, launches_per_step=CTC_LAUNCHES,
+         max_move_step1=max(moved.values()),
+         min_move_step1=min(moved.values()),
+         forward_ms=1e3 * (split[1] - split[0]),
+         backward_ms=1e3 * (split[2] - split[1]),
+         optimizer_ms=1e3 * (split[3] - split[2]), peak_memory_gb=peak_gb,
+         traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / traced_wall_ms,
+         device_events=len(spans), trace_retries=retries,
+         kernel_device_ms=kernel_ms,
+         device_ms_by_kernel=dict(by_kernel.most_common(12)),
+         k1_bound_ms=k1_bound, k2_bound_ms=k2_bound,
+         k1_shapes=k1_shapes, k1_max_abs_err=k1_errs, k1_tolerance=K1_TOL,
+         k1_plain_device_ms_one_call_each=span_ms(k1_plain),
+         k2_shapes=k2_shapes, k2_max_abs_err=k2_errs,
+         k2_err_over_magnitude=k2_rel,
+         k2_plain_device_ms_one_call_each=span_ms(k2_plain),
+         k78_max_abs_err=k78_errs, k7_plain_device_ms=span_ms(k7_plain),
+         k8_plain_device_ms=span_ms(k8_plain),
+         library_fwd_device_ms=span_ms(lib_fwd),
+         library_bwd_device_ms=span_ms(lib_bwd), k7_bound_ms=b7,
+         k8_bound_ms=b8, kernels_loss_grad_norm=kern,
+         plain_loss_grad_norm=plain, plain_rel_diff=rel,
+         plain_tolerance=CTC_PLAIN_TOL, eval_loss=eval_loss,
+         eval_launches=eval_launches)
+    src = "myrtlespeech_tpu_torch/csrc/ctc_lattice.cu"
+    k1_ds2 = {"launches": CTC_LAUNCHES["k1"], "ms": kernel_ms["k1"],
+              "max_abs_err": max(k1_errs.values()), "bound_ms": k1_bound[0]}
+    k2_ds2 = {"launches": CTC_LAUNCHES["k2"], "ms": kernel_ms["k2"],
+              "max_abs_err": max(k2_errs.values()), "bound_ms": k2_bound[0]}
+    return k1_ds2, k2_ds2, [
+        {"name": "K7 ctc_lattice_fwd", "route": "cuda", "source": src,
+         "replaces": "myrtlespeech_tpu/ops/pallas/ctc_kernel.py:45 "
+                     "(_fwd_kernel, pallas_call in _fwd_impl :151)",
+         "launches": CTC_LAUNCHES["k7"],
+         "max_abs_err": max(k78_errs["alphas"], k78_errs["ll"]),
+         "ms": kernel_ms["k7"], "plain_ms": span_ms(k7_plain),
+         "bound_ms": b7, "bound_by": by7, "library_ms": span_ms(lib_fwd)},
+        {"name": "K8 ctc_lattice_bwd", "route": "cuda", "source": src,
+         "replaces": "myrtlespeech_tpu/ops/pallas/ctc_kernel.py:79 "
+                     "(_bwd_kernel, pallas_call in _vjp_bwd :182)",
+         "launches": CTC_LAUNCHES["k8"], "max_abs_err": k78_errs["grad"],
+         "ms": kernel_ms["k8"], "plain_ms": span_ms(k8_plain),
+         "bound_ms": b8, "bound_by": by8, "library_ms": span_ms(lib_bwd)},
+    ]
+
+
+def phase_ctc_falls(dev):
+    """synthetic_ctc from seeded weights, warmup off, takes CTC_FALLS_STEPS
+    steps on one repeated batch of 32 of its train split: the loss must fall
+    to under half its first value."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.config import schema as S
+    from myrtlespeech_tpu_torch.configs.synthetic_ctc import task_config
+    from myrtlespeech_tpu_torch.data.dataset.synthetic import SyntheticSpeech
+    from myrtlespeech_tpu_torch.run import train
+
+    cfg = S.replace(task_config, train_config=S.replace(
+        task_config.train_config, lr_warmup_steps=0))
+    task = build_task(cfg)
+    state = train.init_state(task, seed=0, device=str(dev))
+    data = train.text_batches(SyntheticSpeech(cfg.train_dataset),
+                              task.alphabet, 32, 32)
+    batch = train.to_device(data[0], dev)
+    step = train.make_train_step(task)
+    losses = []
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(CTC_FALLS_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    emit("ctc_falls", config="synthetic_ctc", batch=32,
+         steps=CTC_FALLS_STEPS, losses=losses, seconds=seconds,
+         launches=launches)
+    if (launches["k7"], launches["k8"], launches["k3"]) != (
+            CTC_FALLS_STEPS, CTC_FALLS_STEPS, 0):
+        raise AssertionError(f"the CTC steps did not run K7/K8 once each: "
+                             f"{launches}")
+    if not (all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0]):
+        raise AssertionError(f"the repeated-batch CTC loss did not fall to "
+                             f"half: {losses}")
+
+
 def phase_trained(dev):
     from myrtlespeech_tpu_torch.config import schema as S
     from myrtlespeech_tpu_torch.configs.synthetic_medium_rnnt import \
@@ -1700,6 +2219,7 @@ def main() -> int:
     phase_k2(dev)
     phase_k34(dev)
     phase_k56(dev)
+    phase_k78(dev)
     flagship = phase_flagship(dev)
     k1 = phase_main_path_k1(dev, flagship)
     del flagship
@@ -1711,9 +2231,13 @@ def main() -> int:
     del trained
     phase_path_equality(dev)
     k56 = phase_train_long(dev)
+    k1_ds2, k2_ds2, k78 = phase_train_ctc(dev)
+    k1["ds2"] = k1_ds2
+    k234[0]["ds2"] = k2_ds2
+    phase_ctc_falls(dev)
     phase_medium_falls(dev)
     phase_trained(dev)
-    print(json.dumps({"kernels": [k1] + k234 + k56}), flush=True)
+    print(json.dumps({"kernels": [k1] + k234 + k56 + k78}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """Builders: TaskConfig -> modules and callables for serving and training.
 
-Port of ``myrtlespeech_tpu/builders/build.py`` for the RNN-T:
-``vocab_size`` (``:58``), ``build_preprocess`` and ``preprocess_out_features``
-(``:67-137``), ``build_model`` for RNN-T (``:188-202``),
-the transducer ``build_loss`` (``:213-275``; its ``weighted_reduce`` lives
-in ``ops/rnnt.py``), ``build_fused_transducer_loss`` (``:277-311``),
+Port of ``myrtlespeech_tpu/builders/build.py`` for the RNN-T and
+DeepSpeech2: ``vocab_size`` (``:58``), ``build_preprocess`` and
+``preprocess_out_features`` (``:67-137``), ``validate_model_shapes`` for a
+conv block and ``build_model`` for RNN-T and DeepSpeech2 (``:145-202``),
+the CTC and transducer ``build_loss`` (``:213-275``; its
+``weighted_reduce`` lives in ``ops/rnnt.py``),
+``build_fused_transducer_loss`` (``:277-311``),
 :func:`build_joint_tail_loss` (``build_pallas_joint_loss``, ``:314-372``),
 ``build_rnnt_decode_helpers`` and the greedy ``build_decoder``
 (``:395-488``), ``build_lr_schedule`` and ``build_optimizer``
@@ -28,8 +30,11 @@ from torch import nn
 from myrtlespeech_tpu_torch.config import schema as S
 from myrtlespeech_tpu_torch.data.alphabet import Alphabet
 from myrtlespeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
+from myrtlespeech_tpu_torch.models.cnn import conv_block_out_features
+from myrtlespeech_tpu_torch.models.deep_speech_2 import DeepSpeech2
 from myrtlespeech_tpu_torch.models.rnn_t import RNNT
 from myrtlespeech_tpu_torch.ops import features as F
+from myrtlespeech_tpu_torch.ops.ctc import ctc_loss
 from myrtlespeech_tpu_torch.ops.cuda.joint_kernel import (
     joint_tail_blank_emit, joint_tail_supported)
 from myrtlespeech_tpu_torch.ops.cuda.rnnt_kernel import (rnnt_lattice,
@@ -93,7 +98,8 @@ def build_preprocess(steps: Tuple[S.PreProcessStepConfig, ...]) -> Callable:
             else:
                 raise NotImplementedError(
                     f"preprocess step {type(st).__name__} is not ported "
-                    "yet: ROADMAP.md Queue 1, slice 3 (CTC family)")
+                    "yet: ROADMAP.md Queue 1, slice 3 (DeepSpeech1: MFCC, "
+                    "context frames)")
         if not is_features:
             x = x[..., None]  # (B, S, 1) raw-sample "features"
         return x, lens
@@ -113,14 +119,36 @@ def preprocess_out_features(steps: Tuple[S.PreProcessStepConfig, ...]) -> int:
     return f
 
 
+def validate_model_shapes(model_cfg: S.ModelConfig, in_features: int) -> None:
+    """Raise ``ValueError``, naming the layer, when a DeepSpeech2 conv block
+    collapses the feature dim to 0 or below."""
+    if not isinstance(model_cfg, S.DeepSpeech2Config):
+        return
+    for i in range(len(model_cfg.conv_block)):
+        f = conv_block_out_features(model_cfg.conv_block[:i + 1], in_features)
+        if f <= 0:
+            c = model_cfg.conv_block[i]
+            raise ValueError(
+                f"DeepSpeech2 conv layer {i} collapses the feature dim to "
+                f"{f // c.out_channels} (kernel_feature={c.kernel_feature}, "
+                f"stride_feature={c.stride_feature}, "
+                f"padding={c.padding.name}); with {in_features} input "
+                "features every conv output dim must be > 0")
+
+
 def build_model(cfg: S.SpeechToTextConfig, dtype: torch.dtype,
-                in_features: int) -> RNNT:
-    if not isinstance(cfg.model, S.RNNTConfig):
-        raise NotImplementedError(
-            f"{type(cfg.model).__name__} is not ported yet: ROADMAP.md "
-            "Queue 1, slice 3 (CTC family)")
-    return RNNT(cfg.model, vocab_size=vocab_size(cfg),
-                in_features=in_features, dtype=dtype)
+                in_features: int) -> nn.Module:
+    m = cfg.model
+    validate_model_shapes(m, in_features)
+    if isinstance(m, S.RNNTConfig):
+        return RNNT(m, vocab_size=vocab_size(cfg), in_features=in_features,
+                    dtype=dtype)
+    if isinstance(m, S.DeepSpeech2Config):
+        return DeepSpeech2(m, out_features=vocab_size(cfg),
+                           in_features=in_features, dtype=dtype)
+    raise NotImplementedError(
+        f"{type(m).__name__} is not ported yet: ROADMAP.md Queue 1 "
+        "(DeepSpeech1; encoder-decoder)")
 
 
 def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
@@ -135,19 +163,21 @@ def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def init_params(model: nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights, drawn as the JAX package's Flax initialisers
-    draw them: Xavier-uniform ``w_ih``, orthogonal ``w_hh``, LeCun-normal
-    dense kernels, unit-variance-over-fan-in embeddings; biases keep their
-    construction values (zeros, plus any forget-gate bias)."""
+    draw them: Xavier-uniform ``w_ih`` and lookahead weights, orthogonal
+    ``w_hh``, LeCun-normal dense and conv kernels (fan-in ``in`` of ``(in,
+    out)``, ``kt * kf * in`` of a conv's ``(kt, kf, in, out)``),
+    unit-variance-over-fan-in embeddings; biases and BatchNorm scales keep
+    their construction values (zeros, ones, plus any forget-gate bias)."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf.endswith("_w_ih"):
+        if leaf.endswith("_w_ih") or leaf == "weight":
             bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
             p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
         elif leaf.endswith("_w_hh"):
             p.copy_(_orthogonal(tuple(p.shape), gen))
         elif leaf == "kernel":
             p.copy_(torch.randn(p.shape, generator=gen)
-                    / math.sqrt(p.shape[0]))
+                    / math.sqrt(math.prod(p.shape[:-1])))
         elif leaf == "embedding":
             p.copy_(torch.randn(p.shape, generator=gen)
                     / math.sqrt(p.shape[1]))
@@ -205,16 +235,22 @@ def build_decoder(cfg: S.SpeechToTextConfig, model: RNNT) -> Callable:
 def build_loss(cfg: S.SpeechToTextConfig) -> Callable:
     """``fn(logits, logit_lens, labels, label_lens, weights=None) -> loss``.
 
-    The transducer loss runs the fused blank/emit front and the lattice in
-    K3/K4 (``ops/cuda/rnnt_kernel.py::rnnt_loss_lattice``; their plain
-    versions on the CPU).  The CTC loss is not ported yet.
+    The CTC loss runs the lattice in K7/K8 (``ops/ctc.py::ctc_loss``,
+    per example, then torch's CTC 'mean'); the transducer loss runs the
+    fused blank/emit front and the lattice in K3/K4
+    (``ops/cuda/rnnt_kernel.py::rnnt_loss_lattice``).  Both take their plain
+    versions on the CPU.
     """
     lc = cfg.loss
-    if not isinstance(lc, S.RNNTLossConfig):
-        raise NotImplementedError(
-            f"{type(lc).__name__} is not ported yet: ROADMAP.md Queue 1, "
-            "slice 3 (CTC family)")
     red = lc.reduction.value
+    if isinstance(lc, S.CTCLossConfig):
+        def ctc(logits, logit_lens, labels, label_lens, weights=None):
+            nll = ctc_loss(logits, logit_lens, labels, label_lens,
+                           blank_index=lc.blank_index, reduction="none")
+            return weighted_reduce(nll, red, weights, label_lens,
+                                   ctc_mean=True)
+
+        return ctc
 
     def transducer(logits, logit_lens, labels, label_lens, weights=None):
         nll = rnnt_loss_lattice(logits, logit_lens, labels, label_lens,
@@ -299,14 +335,25 @@ def build_joint_tail_loss(cfg: S.SpeechToTextConfig, dtype: torch.dtype
 def build_lr_schedule(cfg: S.TrainConfig, steps_per_epoch: int
                       ) -> Callable[[int], float]:
     """``schedule(step) -> lr``, step counted from 0, as the JAX package's
-    optax schedules give it: constant, or cosine decay to ``eta_min``
-    (``alpha = eta_min / base``); after ``lr_warmup_steps`` of linear warmup
-    from 0 when set.  Step and exponential decay are not ported yet."""
+    optax schedules give it: constant; step decay ``base * gamma ** floor(step
+    / (step_size_epochs * steps_per_epoch))``; exponential decay, the same a
+    transition per epoch; or cosine decay to ``eta_min`` (``alpha = eta_min /
+    base``).  After ``lr_warmup_steps`` of linear warmup from 0 when set, the
+    decay starts from its own step 0."""
     sc = cfg.lr_scheduler
     base = cfg.optimizer.learning_rate
     if sc is None or isinstance(sc, S.ConstantLRConfig):
         def inner(step: int) -> float:
             return base
+    elif isinstance(sc, (S.StepLRConfig, S.ExponentialLRConfig)):
+        transition = steps_per_epoch * (
+            sc.step_size_epochs if isinstance(sc, S.StepLRConfig) else 1)
+        gamma = sc.gamma
+
+        def inner(step: int) -> float:
+            if transition <= 0:  # optax's exponential_decay: constant
+                return base
+            return base * gamma ** (step // transition)
     elif isinstance(sc, S.CosineAnnealingLRConfig):
         decay_steps = max(sc.t_max_epochs * steps_per_epoch, 1)
         alpha = sc.eta_min / base if base else 0.0
@@ -316,9 +363,7 @@ def build_lr_schedule(cfg: S.TrainConfig, steps_per_epoch: int
                                          / decay_steps))
             return base * ((1 - alpha) * cosine + alpha)
     else:
-        raise NotImplementedError(
-            f"{type(sc).__name__} is not ported yet: ROADMAP.md Queue 1, "
-            "slice 2 (run loop)")
+        raise ValueError(f"unknown lr scheduler {type(sc)}")
     warmup = cfg.lr_warmup_steps
     if warmup <= 0:
         return inner
@@ -338,15 +383,15 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """optax's ``chain(clip_by_global_norm, add_decayed_weights, adam)``
-    over a model's parameters.
+    """optax's ``chain(clip_by_global_norm, add_decayed_weights, adam or
+    sgd)`` over a model's parameters.
 
     :meth:`step` clips the gradients to optax's formula (``g / norm * max``
-    when ``norm >= max``), then runs ``torch.optim.Adam``, whose
-    ``weight_decay`` adds ``wd * p`` to the gradient before the update
-    (coupled L2, optax's ``add_decayed_weights`` before Adam), with the
-    learning rate ``schedule(step)``.  Nothing reads the gradients back
-    to the host.
+    when ``norm >= max``), then runs the inner ``torch.optim.Adam`` or
+    ``torch.optim.SGD``, whose ``weight_decay`` adds ``wd * p`` to the
+    gradient before the update (coupled L2, optax's ``add_decayed_weights``
+    before the optimizer), with the learning rate ``schedule(step)``.
+    Nothing reads the gradients back to the host.
     """
 
     def __init__(self, params: List[torch.nn.Parameter],
@@ -386,12 +431,18 @@ def build_optimizer(cfg: S.TrainConfig, steps_per_epoch: int,
     sched = build_lr_schedule(cfg, steps_per_epoch)
     params = list(params)
     oc = cfg.optimizer
-    if not isinstance(oc, S.AdamConfig):
-        raise NotImplementedError(
-            f"{type(oc).__name__} is not ported yet: ROADMAP.md Queue 1, "
-            "slice 3 (CTC family)")
-    inner = torch.optim.Adam(params, lr=0.0, betas=(oc.beta_1, oc.beta_2),
-                             eps=oc.eps, weight_decay=oc.l2_weight_decay)
+    if isinstance(oc, S.SGDConfig):
+        # optax's trace (v = g + momentum * v, nesterov: g + momentum * v)
+        # then -lr * v: torch's SGD with dampening 0.
+        inner = torch.optim.SGD(params, lr=0.0, momentum=oc.momentum,
+                                dampening=0.0, nesterov=oc.nesterov,
+                                weight_decay=oc.l2_weight_decay)
+    elif isinstance(oc, S.AdamConfig):
+        inner = torch.optim.Adam(params, lr=0.0,
+                                 betas=(oc.beta_1, oc.beta_2), eps=oc.eps,
+                                 weight_decay=oc.l2_weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer {type(oc)}")
     return Optimizer(params, inner, sched, cfg.grad_clip_norm), sched
 
 
@@ -403,7 +454,8 @@ def build_optimizer(cfg: S.TrainConfig, steps_per_epoch: int,
 @dataclasses.dataclass
 class Task:
     """What the train and eval steps need from one TaskConfig (the JAX
-    package's ``Task`` without datasets and decoder)."""
+    package's ``Task`` without datasets and decoder).  The transducer's
+    fused losses are None for a CTC task."""
 
     cfg: S.TaskConfig
     alphabet: Alphabet
@@ -422,7 +474,11 @@ class Task:
     # take.
     joint_tail_loss: Optional[Callable] = None
 
-    def build_model(self) -> RNNT:
+    @property
+    def transducer(self) -> bool:
+        return isinstance(self.cfg.speech_to_text.model, S.RNNTConfig)
+
+    def build_model(self) -> nn.Module:
         return build_model(self.cfg.speech_to_text, self.dtype,
                            self.in_features)
 
@@ -434,19 +490,20 @@ class Task:
 def build_task(cfg: S.TaskConfig, steps_per_epoch: int = 1000,
                dtype: Optional[torch.dtype] = None) -> Task:
     stt = cfg.speech_to_text
-    if not isinstance(stt.loss, S.RNNTLossConfig) \
-            or not isinstance(stt.model, S.RNNTConfig):
-        raise NotImplementedError(
-            "only RNN-T tasks are ported yet: ROADMAP.md Queue 1, slice 3 "
-            "(CTC family)")
+    transducer = isinstance(stt.model, S.RNNTConfig)
+    if transducer != isinstance(stt.loss, S.RNNTLossConfig):
+        raise ValueError(f"{type(stt.model).__name__} cannot train with "
+                         f"{type(stt.loss).__name__}")
     dtype = dtype or getattr(torch, cfg.train_config.compute_dtype)
-    return Task(
+    task = Task(
         cfg=cfg, alphabet=Alphabet(stt.alphabet), dtype=dtype,
         in_features=preprocess_out_features(stt.pre_process_steps),
         preprocess=build_preprocess(stt.pre_process_steps),
         loss_fn=build_loss(stt),
         lr_schedule=build_lr_schedule(cfg.train_config, steps_per_epoch),
-        steps_per_epoch=steps_per_epoch,
-        fused_loss=build_fused_transducer_loss(stt),
-        fused_loss_auto=build_fused_transducer_loss(stt, force=True),
-        joint_tail_loss=build_joint_tail_loss(stt, dtype))
+        steps_per_epoch=steps_per_epoch)
+    if transducer:
+        task.fused_loss = build_fused_transducer_loss(stt)
+        task.fused_loss_auto = build_fused_transducer_loss(stt, force=True)
+        task.joint_tail_loss = build_joint_tail_loss(stt, dtype)
+    return task

@@ -6,9 +6,11 @@ runs time-major inside; parameters are fp32 with Flax's layout and names,
 the compute dtype.  Every LSTM layer goes through ``ops/rnn.py::lstm_scan``
 and so through K1 on the card.
 
-Dropout between layers is the identity at inference; at train time a
-dropout above 0 raises ``NotImplementedError`` (not ported yet), as do the
-other cells and the masked BatchNorm.
+With ``batch_norm`` a masked BatchNorm (``models/normalization.py``) runs
+between stacked layers, not after the last one: ``MaskedBatchNorm_{i}``
+after layer ``i``, as the JAX package names them.  Dropout between layers is
+the identity at inference; at train time a dropout above 0 raises
+``NotImplementedError`` (not ported yet), as do the other cells.
 """
 
 from __future__ import annotations
@@ -19,12 +21,12 @@ import torch
 from torch import nn
 
 from myrtlespeech_tpu_torch.config.schema import RNNConfig, RNNType
+from myrtlespeech_tpu_torch.models.normalization import MaskedBatchNorm
 from myrtlespeech_tpu_torch.ops import rnn as rnn_ops
 
 _NOT_PORTED = {
-    RNNType.GRU: "ROADMAP.md Queue 1, slice 3 (GRU/vanilla cells, CTC family)",
-    RNNType.BASIC_RNN: "ROADMAP.md Queue 1, slice 3 (GRU/vanilla cells, "
-                       "CTC family)",
+    RNNType.GRU: "ROADMAP.md Queue 1, slice 3 (GRU and vanilla cells)",
+    RNNType.BASIC_RNN: "ROADMAP.md Queue 1, slice 3 (GRU and vanilla cells)",
     RNNType.HARD_LSTM: "ROADMAP.md Queue 1, slice 2 (HARD_LSTM cell)",
 }
 
@@ -37,10 +39,6 @@ class RNN(nn.Module):
             raise NotImplementedError(
                 f"{cfg.rnn_type.name} is not ported yet: "
                 f"{_NOT_PORTED[cfg.rnn_type]}")
-        if cfg.batch_norm:
-            raise NotImplementedError(
-                "masked BatchNorm between RNN layers is not ported yet: "
-                "ROADMAP.md Queue 1, slice 3 (CTC models)")
         self.cfg = cfg
         self.dtype = dtype
         H = cfg.hidden_size
@@ -58,6 +56,9 @@ class RNN(nn.Module):
                     if cfg.forget_gate_bias is not None:
                         b[H:2 * H] = cfg.forget_gate_bias
                     self.register_parameter(f"{name}_b", nn.Parameter(b))
+            if cfg.batch_norm and layer < cfg.num_layers - 1:
+                self.add_module(f"MaskedBatchNorm_{layer}",
+                                MaskedBatchNorm(H * dirs, dtype=dtype))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 train: bool = False,
@@ -92,4 +93,7 @@ class RNN(nn.Module):
                 layer_states.append(st)
             final_states.append(layer_states)
             y = outs[0] if dirs == 1 else torch.cat(outs, dim=-1)
+            if c.batch_norm and layer < c.num_layers - 1:
+                bn = getattr(self, f"MaskedBatchNorm_{layer}")
+                y = bn(y.transpose(0, 1), lengths, train).transpose(0, 1)
         return y.transpose(0, 1), lengths, final_states

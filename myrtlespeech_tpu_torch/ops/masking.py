@@ -30,6 +30,22 @@ def mask_sequence(x: torch.Tensor, lengths: torch.Tensor, time_axis: int = 1,
                                            device=x.device))
 
 
+def conv_out_size(in_size, kernel: int, stride: int = 1, padding: int = 0,
+                  dilation: int = 1):
+    """Output size of a strided convolution, ``floor((in + 2 pad -
+    dilation (kernel - 1) - 1) / stride) + 1``, for a Python int or an
+    integer tensor of lengths (floor division, so a length shorter than the
+    kernel goes negative; callers clamp at 0)."""
+    numer = in_size + 2 * padding - dilation * (kernel - 1) - 1
+    return numer // stride + 1
+
+
+def same_padding(kernel: int, dilation: int = 1) -> int:
+    """Symmetric padding that keeps the size of a stride-1 conv with an odd
+    kernel (the floor for an even one)."""
+    return (dilation * (kernel - 1)) // 2
+
+
 def time_reduction_out_lens(lengths, factor: int):
     """Output lengths after stacking ``factor`` consecutive frames (ceil)."""
     return (lengths + factor - 1) // factor

@@ -122,11 +122,18 @@ def rnnt_log_likelihood_from_blank_emit(lp_blank: torch.Tensor,
 
 
 def weighted_reduce(nll: torch.Tensor, reduction: str,
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    weights: Optional[torch.Tensor] = None,
+                    label_lens: Optional[torch.Tensor] = None,
+                    ctc_mean: bool = False) -> torch.Tensor:
     """Loss reduction (``builders/build.py::weighted_reduce`` of the JAX
     package) with optional 0/1 per-example ``weights (B,)``, which mask
-    duplicated fill rows out of the batch statistic; transducer 'mean' is the
-    plain batch mean (warp-transducer semantics)."""
+    duplicated fill rows out of the batch statistic.  Transducer 'mean' is
+    the plain batch mean (warp-transducer semantics); with ``ctc_mean`` each
+    example's loss is first divided by ``max(label_len, 1)`` (torch's CTC
+    'mean')."""
+    if ctc_mean and reduction == "mean":
+        nll = nll / torch.clamp(label_lens.to(nll.device), min=1).to(
+            nll.dtype)
     if reduction == "none":
         return nll
     if reduction not in ("sum", "mean"):

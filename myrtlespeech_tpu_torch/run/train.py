@@ -1,4 +1,4 @@
-"""Training entry point: the RNN-T train step and the eval loss.
+"""Training entry point: the RNN-T and CTC train steps and the eval loss.
 
 Port of ``myrtlespeech_tpu/run/train.py``: ``TrainState``, ``init_state``,
 ``_forward``, ``_select_joint_path``, ``train_step_body``,
@@ -8,15 +8,23 @@ eagerly, so the step is a plain function that updates the state in place:
     preprocess (SpecAugment at train time) -> RNNT.encode -> RNNT.predict
     -> joint path -> lattice (K3, K4) -> backward -> clip, L2, Adam
 
-Every LSTM layer runs K1 forward and K2 backward on the card.  The joint
-path is chosen per batch (:func:`_select_joint_path`): the full joint and
-blank/emit front when the memory planner projects that it fits; else the
-joint tail in K5 and K6, which never builds the ``(B, T', U+1, .)``
-tensors; or the T-chunked joint when a config forces it or the kernels do
-not take the topology.
+or, for a CTC model (DeepSpeech2),
+
+    preprocess -> DeepSpeech2 (conv block, BiLSTMs with masked BatchNorm,
+    FC) -> CTC lattice (K7, K8) -> backward -> clip, L2, SGD
+
+Every LSTM layer runs K1 forward and K2 backward on the card.  BatchNorm
+takes the batch's statistics and moves its running ones in a train step,
+and uses the running ones in the eval step.  The transducer's joint path is
+chosen per batch (:func:`_select_joint_path`): the full joint and blank/emit
+front when the memory planner projects that it fits; else the joint tail
+in K5 and K6, which never builds the ``(B, T', U+1, .)`` tensors; or the
+T-chunked joint when a config forces it or the kernels do not take the
+topology.
 
     python -m myrtlespeech_tpu_torch.run.train --config rnn_t_en --batch 32 --seconds 5 --labels 64 --steps 5
     python -m myrtlespeech_tpu_torch.run.train --config rnn_t_en --batch 128 --seconds 16.7 --labels 214 --steps 3
+    python -m myrtlespeech_tpu_torch.run.train --config deep_speech_2_en --batch 32 --seconds 16.7 --labels 214
 
 (the second is over the budget of an 80 GB card and trains through K5/K6).
 
@@ -35,13 +43,13 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from myrtlespeech_tpu_torch.builders.build import (Optimizer, Task,
                                                    build_task, init_params,
                                                    vocab_size)
-from myrtlespeech_tpu_torch.models.rnn_t import RNNT
-from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
-                                             rnnt_kernel)
+from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, joint_kernel,
+                                             lstm_kernel, rnnt_kernel)
 from myrtlespeech_tpu_torch.run.infer import load_config, resolve_device
 from myrtlespeech_tpu_torch.run.memory import plan_transducer_chunk
 
@@ -50,10 +58,11 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters), the optimizer (its state), the step
-    count from 0, and the generator that SpecAugment draws from."""
+    """The model (its parameters and BatchNorm statistics), the optimizer
+    (its state), the step count from 0, and the generator that SpecAugment
+    draws from."""
 
-    model: RNNT
+    model: nn.Module
     optimizer: Optimizer
     step: int
     gen: torch.Generator
@@ -132,14 +141,22 @@ def _select_joint_path(task: Task, f: torch.Tensor, g: torch.Tensor,
     return task.fused_loss_auto, chunk
 
 
-def _forward(task: Task, model: RNNT, batch: Batch, train: bool,
+def _forward(task: Task, model: nn.Module, batch: Batch, train: bool,
              gen: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Tuple[Optional[torch.Tensor],
                                             torch.Tensor]]:
-    """preprocess -> encode -> predict -> joint path -> mean loss; returns
-    ``(loss, (logits, f_lens))``, ``logits`` None on a fused path."""
+    """preprocess -> model -> loss.  Transducer: encode -> predict -> joint
+    path; CTC: the model's logits into the CTC loss (BatchNorm moves its
+    running statistics when ``train``).  Returns ``(loss, (logits,
+    out_lens))``, ``logits`` None on a fused transducer path."""
     feats, flens = task.preprocess(batch["wav"], batch["wav_lens"], train,
                                    gen)
+    if not task.transducer:
+        logits, out_lens = model(feats, flens, train)
+        loss = task.loss_fn(logits, out_lens, batch["labels"],
+                            batch["label_lens"],
+                            weights=_batch_weights(batch))
+        return loss, (logits, out_lens)
     f, f_lens = model.encode(feats, flens, train)
     g = model.predict(batch["labels"], batch["label_lens"], train)
     fused, chunk = _select_joint_path(task, f, g, backward=train)
@@ -180,7 +197,8 @@ def make_train_step(task: Task) -> Callable:
 
 def eval_step_body(task: Task) -> Callable:
     """``eval_step(state, batch) -> {"loss"}``: the eval-mode loss (no
-    SpecAugment, no gradient), as the JAX package's eval step computes it."""
+    SpecAugment, BatchNorm's running statistics, no gradient), as the JAX
+    package's eval step computes it."""
 
     def eval_step(state: TrainState, batch: Batch):
         with torch.no_grad():
@@ -239,7 +257,9 @@ def kernel_launches() -> Dict[str, int]:
             "k3": rnnt_kernel.rnnt_lattice_fwd.launches,
             "k4": rnnt_kernel.rnnt_lattice_bwd.launches,
             "k5": joint_kernel.joint_tail_fwd.launches,
-            "k6": joint_kernel.joint_tail_bwd.launches}
+            "k6": joint_kernel.joint_tail_bwd.launches,
+            "k7": ctc_kernel.ctc_lattice_fwd.launches,
+            "k8": ctc_kernel.ctc_lattice_bwd.launches}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from myrtlespeech_tpu_torch.ops import rnn as port_rnn
+from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as port_k78
 from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as port_k56
 from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as port_k1
 from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as port_k34
@@ -27,7 +28,7 @@ FP32_TOL = 1e-3
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 to K6 are CUDA kernels")
+        pytest.skip("needs a CUDA card: K1 to K8 are CUDA kernels")
     return torch.device("cuda")
 
 
@@ -49,7 +50,7 @@ def _k1_inputs(T, B, H, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,B,H", [(4, 5, 96), (3, 33, 320), (2, 32, 1024),
-                                   (5, 3, 20), (1, 1, 1)])
+                                   (5, 3, 20), (1, 1, 1), (3, 32, 800)])
 def test_k1_matches_plain_version(T, B, H):
     dev = _card()
     args = _k1_inputs(T, B, H, seed=5, dev=dev)
@@ -103,7 +104,8 @@ def _close_to_scale(got, want, tol, name):
 @pytest.mark.parametrize("T,B,H,need_dh0", [(5, 4, 96, True),
                                             (4, 33, 320, False),
                                             (3, 32, 1024, True),
-                                            (1, 1, 1, True)])
+                                            (1, 1, 1, True),
+                                            (4, 32, 800, False)])
 def test_k2_matches_plain_version(T, B, H, need_dh0):
     dev = _card()
     args = _k1_inputs(T, B, H, seed=7, dev=dev)
@@ -249,3 +251,83 @@ def test_k5_k6_match_plain_versions(B, T, U1, K, V, act):
     for name, got, want in zip(("dfp", "dgp", "dw2", "db2"), bwd, bwd_ref):
         assert got.shape == want.shape and got.dtype == want.dtype, name
         _close_to_scale(got.float(), want.float(), K6_TOL, name)
+
+
+def _ctc_inputs(B, T, U, V, blank, seed, dev):
+    """Random logits and labels (never the blank) with ragged frame and
+    label lengths, 2 label_len <= logit_len so that every row has a path;
+    the first row full, the last (when B > 1) with an empty target."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, V)).astype(np.float32)
+    fl = rng.integers(max(1, T // 2), T + 1, B).astype(np.int32)
+    fl[0] = T
+    labels = rng.integers(0, V - 1, (B, U))
+    labels = (np.where(labels >= blank, labels + 1, labels) % V).astype(
+        np.int32)
+    ul = np.minimum(rng.integers(0, U + 1, B), fl // 2).astype(np.int32)
+    ul[0] = min(U, T // 2) if T > 1 else min(U, 1)
+    if B > 1:
+        ul[-1] = 0
+    return [torch.from_numpy(a).to(dev) for a in (logits, fl, labels, ul)]
+
+
+# (B, T, U, V, blank): small and ragged, B=20 with the blank last, one
+# frame, the DeepSpeech2 step's lattice (S=429), and S above one block's
+# 1,024 threads: 1,401 (two columns a thread), 2,201 (four) and 9,001
+# (sixteen, the kernels' widest).
+CTC_SHAPES = [(3, 9, 4, 6, 0), (20, 12, 5, 7, 6), (3, 1, 1, 4, 0),
+              (32, 836, 214, 29, 0), (2, 1500, 700, 29, 0),
+              (1, 2300, 1100, 29, 0), (1, 9100, 4500, 29, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,V,blank", CTC_SHAPES)
+def test_k7_k8_match_plain_versions(B, T, U, V, blank):
+    dev = _card()
+    logits, fl, labels, ul = _ctc_inputs(B, T, U, V, blank, B + T, dev)
+    lp, skip = port_k78.ctc_lattice_inputs(logits, fl, labels, ul, blank)
+    g = torch.linspace(-1.5, -0.5, B, device=dev)
+    before = (port_k78.ctc_lattice_fwd.launches,
+              port_k78.ctc_lattice_bwd.launches)
+    alphas, ll = port_k78.ctc_lattice_fwd(lp, skip, ul)
+    grad = port_k78.ctc_lattice_bwd(lp, skip, ul, alphas, ll, g)
+    torch.cuda.synchronize()
+    assert (port_k78.ctc_lattice_fwd.launches,
+            port_k78.ctc_lattice_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    a_ref, ll_ref = port_k78.ctc_lattice_fwd_reference(lp, skip, ul)
+    grad_ref = port_k78.ctc_lattice_bwd_reference(lp, skip, ul, a_ref,
+                                                  ll_ref, g)
+    # The same fp32 stencil in the same order on both sides; CUDA's
+    # expf/log1pf and the library's may differ by an ulp, compounded over T
+    # rows: 1e-5 relative on alphas and log-likelihoods, 1e-5 absolute on
+    # the occupancy gradients (at most 1.5 here).
+    reachable = a_ref > -1e29
+    torch.testing.assert_close(alphas[reachable], a_ref[reachable],
+                               rtol=1e-5, atol=1e-4)
+    assert (alphas[~reachable] < -1e29).all()
+    torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(grad, grad_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,V,blank", CTC_SHAPES[:4])
+def test_ctc_loss_lattice_on_the_card_matches_the_cpu(B, T, U, V, blank):
+    dev = _card()
+    cpu = _ctc_inputs(B, T, U, V, blank, 3 * B + T, "cpu")
+    out = {}
+    for where, args in (("cpu", cpu), ("cuda", [a.to(dev) for a in cpu])):
+        x = args[0].clone().requires_grad_()
+        nll = port_k78.ctc_loss_lattice(x, *args[1:], blank)
+        w = torch.linspace(0.5, 1.5, B, device=x.device)
+        (grad,) = torch.autograd.grad((nll * w).sum(), x)
+        out[where] = (nll.detach().cpu(), grad.cpu())
+    # log_softmax rounds in other places on the card; the occupancy
+    # exp(alpha + beta - lp - ll) takes the difference of sums as large as
+    # |ll|, so an fp32 step there (|ll| 2^-23) moves a gradient element by
+    # that share of its size (at most 2 here): 4 such steps, at least 1e-5.
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-4)
+    atol = max(1e-5, 4 * 2.0 ** -23 * float(out["cpu"][0].abs().max()) * 2)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=atol)

@@ -120,6 +120,11 @@ def test_kernel_module_imports_and_runs_without_nvcc_or_card():
         "j.joint_tail_bwd(fp, torch.zeros(2, 4, 8), w2, torch.zeros(5), lab,\n"
         "                 lp, lp, 0, 'relu', 20.0, 'float32')\n"
         "assert j.joint_tail_fwd.launches == j.joint_tail_bwd.launches == 0\n"
+        "from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as c\n"
+        "lp, sk = torch.zeros(2, 3, 5), torch.zeros(2, 5)\n"
+        "a, ll = c.ctc_lattice_fwd(lp, sk, n)\n"
+        "c.ctc_lattice_bwd(lp, sk, n, a, ll, torch.ones(2))\n"
+        "assert c.ctc_lattice_fwd.launches == c.ctc_lattice_bwd.launches == 0\n"
         "assert build.load_library.cache_info().currsize == 0\n")
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_VISIBLE_DEVICES="")

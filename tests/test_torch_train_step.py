@@ -307,7 +307,7 @@ def test_train_cli_runs_on_the_cpu_when_asked(capsys):
         assert np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
         assert x["device"] == "cpu"
         assert x["launches"] == {"k1": 0, "k2": 0, "k3": 0, "k4": 0,
-                                 "k5": 0, "k6": 0}
+                                 "k5": 0, "k6": 0, "k7": 0, "k8": 0}
     assert lines[0]["lr"] == 0.0  # warmup starts at 0
 
 
