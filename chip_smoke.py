@@ -9,17 +9,19 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              source, all started together; the build time and ptxas report.
 3. k1        K1 (the LSTM recurrence) against its plain PyTorch version at the
              flagship's encoder shapes and its prediction-net shape, with
-             ragged lengths: the largest error per output, and the kernel's,
-             the plain version's and cuDNN's ``nn.LSTM`` times (CUDA events,
-             median), beside the least time the card could take; the
-             kernel's time again with its launches queued behind a spin
-             kernel (the device's own time, without the host's launch rate).
+             ragged lengths, on both routes (the persistent kernel, which
+             these shapes take, and the per-step kernel): the largest error
+             per output, and each route's, the plain version's and cuDNN's
+             ``nn.LSTM`` times (CUDA events, median), beside the least time
+             the card could take; each route's time again with its launches
+             queued behind a spin kernel (the device's own time, without the
+             host's launch rate).
 4. k2        K2 (the LSTM backward) against its plain version at the train
              step's shapes (T=501 and 251 at H=1024, T=65 at H=320; B=32,
-             ragged lengths, from K1's own saved tensors): errors, and the
-             kernel's (also queued, as in k1), the plain version's and
-             cuDNN's ``nn.LSTM`` backward times (the yardstick also computes
-             dW and dx).
+             ragged lengths, from K1's own saved tensors), on both routes:
+             errors, and each route's (also queued, as in k1), the plain
+             version's and cuDNN's ``nn.LSTM`` backward times (the yardstick
+             also computes dW and dx).
 5. k34       K3 and K4 (the transducer lattice forward and backward) against
              their plain versions on the 5 s (B=32, T'=251, U+1=65) and 15 s
              (T'=751, U+1=193) lattices: errors and times (no single library
@@ -33,30 +35,38 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              B=32 x 5 s of seeded audio through ``build_transcriber``: one
              warm-up and three timed runs, K1's launches on that path, a
              stage split, and one run traced with ``torch.profiler`` for
-             K1's device time on the main path and the device's idle share.
+             K1's device time on the main path and the device's idle share;
+             the same batch again with K1's per-step route swapped in
+             (``StepwiseRoute``): latency in turns with the persistent
+             route, and one traced run for the per-step route's device time
+             on the same path.
 8. k1_main_path  every K1 call of one such run, recorded and replayed
-             through K1 (errors against the plain version on the main
-             path's own inputs), the plain version and cuDNN (device time
-             of each replay, traced alike).
+             through both routes (errors against the plain version on the
+             main path's own inputs), the plain version and, at the same
+             shapes, cuDNN (device time of each replay, traced).
 9. train     ``rnn_t_en`` at full width trains on B=32 x 5 s with 64 labels
              through ``make_train_step``: a warm-up step, then timed steps
-             in which K1 and K2 launch 1,885 times a step and K3 and K4 once
+             in which K1 and K2 launch 7 times a step (one persistent launch
+             per LSTM layer; the per-step route never) and K3 and K4 once
              and no plain version runs; finite loss and gradient norm, every
              parameter moved after step 1; a forward/backward/optimizer
              split; one step traced for each kernel's device time and the
-             idle share; every K1, K2, K3 and K4 call of one step replayed
-             through its kernel (errors), its plain version and (K2) cuDNN,
-             each replay's device time traced.
+             idle share; one step traced with K1 and K2 on the per-step
+             route; every K1, K2, K3 and K4 call of one step replayed
+             through its kernel (errors; K1 and K2 on both routes), its plain
+             version and (K1, K2) cuDNN, each replay's device time traced.
              Then ``path_equality``: from one encode/predict at B=32 x 5 s,
              the loss and the gradients of f, g and the joint's weights
              through the full joint, the joint tail (K5, K6) and the chunked
              path agree.  Then ``train_long``: B=128 x 16.7 s with 214
              labels, over the memory planner's budget, trains through the
-             joint tail: K1 and K2 6,280 launches a step, K3 to K6 one, no
-             plain version; step time, split, peak memory, one traced step;
-             one K1 and K2 call of each shape and the K5 and K6 calls
-             replayed against their plain versions; then the same batch
-             through the chunked path (time and peak memory, or its
+             joint tail: K1 and K2 7 launches a step, K3 to K6 one, no
+             plain version; step time, split, peak memory, one traced step
+             and one on K1's and K2's per-step route; the step's K1 and K2
+             calls against the plain versions on both routes (one call of
+             each shape), cuDNN at their shapes, the K5 and K6 calls
+             against their plain versions; then the same batch through the
+             chunked path (time and peak memory, or its
              out-of-memory error) as the yardstick.  Then the medium config
              (which forces the chunked path) from seeded weights, warmup
              off, takes 20 steps on one repeated batch: its loss must fall.
@@ -69,15 +79,17 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              port's whole CTC loss on the same logits.
     After ``train_long``, ``train_ctc``: ``deep_speech_2_en`` at full width
              trains on B=32 x 16.7 s with 214 labels through
-             ``make_train_step``: K1 and K2 8,360 launches a step at H=800,
+             ``make_train_step``: K1 and K2 10 launches a step at H=800,
              K7 and K8 one, K3-K6 none, no plain version; finite loss and
              gradient norm, every parameter and BatchNorm statistic moved
-             after step 1; step time, split, peak memory, one traced step;
-             one K1 and K2 call of each shape and the K7 and K8 calls
-             replayed against their plain versions, with ``F.ctc_loss``'s
-             forward and backward on the step's logits as the yardstick; the
-             step's loss and gradient norm against the same batch with the
-             plain versions forced on the card; a finite eval loss.  Then
+             after step 1; step time, split, peak memory, one traced step
+             and one on the per-step route; one K1 and K2 call against the
+             plain versions on both routes, cuDNN's bidirectional LSTM at
+             the calls' shapes, the K7 and K8 calls against their plain
+             versions, with ``F.ctc_loss``'s forward and backward on the
+             step's logits as the yardstick; the step's loss and gradient
+             norm against the same batch with the plain versions forced on
+             the card; a finite eval loss.  Then
              ``ctc_falls``: ``synthetic_ctc`` from seeded weights, warmup
              off, 20 steps on one repeated batch: the loss must fall below
              half its start.
@@ -89,14 +101,19 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
 
 Then a ``kernels`` line (one entry per ported kernel: ``ms`` is the kernel's
 device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
-device times of the replays; ``bound_ms`` counted from the recorded calls),
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Without a
-CUDA card the script exits non-zero before it prints any result.
+device times of the replays; ``bound_ms`` counted from the recorded calls;
+K1's and K2's entries also hold ``us_per_step``, the per-step route's
+``stepwise_ms`` and ``stepwise_us_per_step``, and ``paths``: these figures
+for each main path, serve, train, long and ds2), the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.  Every main path also asserts that
+K1's and K2's per-step route launched no time.  Without a CUDA card the
+script exits non-zero before it prints any result.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -182,37 +199,42 @@ K5_TOL = 1e-5
 K6_TOL = 2e-2
 K56_OUTPUTS = ("lp_blank", "lp_emit", "dfp", "dgp", "dw2", "db2")
 
-# The flagship train step: K1 and K2 run once per step of every LSTM layer
-# (2 x 501 + 3 x 251 encoder, 2 x 65 prediction net), K3 and K4 once; its
-# full joint fits, so K5 and K6 do not run.
+# The flagship train step: K1 and K2 launch once per LSTM layer (5 encoder
+# layers at T=501 and 251, 2 prediction-net layers at T=65), on the
+# persistent route; K3 and K4 once; its full joint fits, so K5 and K6 do not
+# run.  ``k1_step``/``k2_step`` count the per-step route's launches, which no
+# main path makes.
 TRAIN_LABELS = 64
-TRAIN_LAUNCHES = {"k1": 1885, "k2": 1885, "k3": 1, "k4": 1, "k5": 0,
-                  "k6": 0, "k7": 0, "k8": 0}
+TRAIN_LAUNCHES = {"k1": 7, "k2": 7, "k1_step": 0, "k2_step": 0, "k3": 1,
+                  "k4": 1, "k5": 0, "k6": 0, "k7": 0, "k8": 0}
 TRAIN_STEPS = 5
+TRAIN_LSTM_STEPS = 2 * 501 + 3 * 251 + 2 * 65  # steps of K1's / K2's calls
 MEDIUM_STEPS = 20
 
 # The long train step: rnn_t_en at B=128 x 16.7 s (the configs'
 # max_duration_s) with 214 labels (bench.py's 12.8 labels a second): T=1671
 # frames, T'=836 after the time reduction, U+1=215.  Its full joint is
 # projected at 78.7 GB, over the planner's budget, so it trains through the
-# joint tail: K1 and K2 2 x 1671 + 3 x 836 + 2 x 215 times a step, K3 to K6
-# once.
+# joint tail: K1 and K2 once per LSTM layer (T=1671, 836 and 215), K3 to
+# K6 once.
 LONG_BATCH, LONG_SECONDS, LONG_LABELS = 128, 16.7, 214
-LONG_LAUNCHES = {"k1": 6280, "k2": 6280, "k3": 1, "k4": 1, "k5": 1, "k6": 1,
-                 "k7": 0, "k8": 0}
+LONG_LAUNCHES = {"k1": 7, "k2": 7, "k1_step": 0, "k2_step": 0, "k3": 1,
+                 "k4": 1, "k5": 1, "k6": 1, "k7": 0, "k8": 0}
 LONG_STEPS = 3
+LONG_LSTM_STEPS = 2 * 1671 + 3 * 836 + 2 * 215
 
 FLAGSHIP_BATCH, FLAGSHIP_SECONDS = 32, 5.0
 
 # The DeepSpeech2 train step: deep_speech_2_en at B=32 x 16.7 s (its
 # max_duration_s) with 214 labels: T=1671 frames, T'=836 after the first
-# conv's stride 2, S=429 lattice columns.  K1 and K2 run once per step of
-# each of the 10 LSTM directions (5 BiLSTM-800 layers), 8,360 times a step;
-# K7 and K8 once; no transducer kernel runs.
+# conv's stride 2, S=429 lattice columns.  K1 and K2 launch once for each
+# of the 10 LSTM directions (5 BiLSTM-800 layers, T'=836 steps each); K7 and
+# K8 once; no transducer kernel runs.
 CTC_BATCH, CTC_SECONDS, CTC_LABELS = 32, 16.7, 214
-CTC_LAUNCHES = {"k1": 8360, "k2": 8360, "k3": 0, "k4": 0, "k5": 0, "k6": 0,
-                "k7": 1, "k8": 1}
+CTC_LAUNCHES = {"k1": 10, "k2": 10, "k1_step": 0, "k2_step": 0, "k3": 0,
+                "k4": 0, "k5": 0, "k6": 0, "k7": 1, "k8": 1}
 CTC_STEPS = 3
+CTC_LSTM_STEPS = 10 * 836
 CTC_FALLS_STEPS = 20
 
 # K7 and K8 against their plain versions: the same fp32 stencil in the same
@@ -413,7 +435,9 @@ def check_errors(errs, label: str) -> None:
 
 
 def phase_k1(dev):
-    """K1 against its plain version, timed, at the main path's shapes.
+    """K1 against its plain version, timed, at the main path's shapes, on
+    both routes: the persistent kernel (where :func:`lstm_route` sends these
+    shapes) and the per-step kernel, each also queued behind a spin kernel.
 
     The flagship's encoder runs K1 at T=501 (layers 1-2, input widths 80 and
     1024) and T=251 (layers 3-5, input widths 2048, 1024, 1024), H=1024; its
@@ -421,8 +445,7 @@ def phase_k1(dev):
     """
     from torch import nn
 
-    from myrtlespeech_tpu_torch.ops.cuda.lstm_kernel import (
-        lstm_fwd, lstm_fwd_reference)
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
 
     B = FLAGSHIP_BATCH
     # label: (T, H, input widths of the layers that run it); the encoder
@@ -434,14 +457,25 @@ def phase_k1(dev):
     for i, (label, (T, H, widths)) in enumerate(shapes.items()):
         args = _k1_case(T, B, H, seed=10 + i, dev=dev,
                         random_state=label == "pred_T1")
-        got = lstm_fwd(*args)
-        torch.cuda.synchronize()
-        errs = k1_errors(got, lstm_fwd_reference(*args), label)
+        route = k._route(dev, B, H)
+        if route != "persistent":
+            raise AssertionError(f"K1 {label} takes the {route} route")
+        want = k.lstm_fwd_reference(*args)
+        errs = k1_errors(k.lstm_fwd(*args), want, label)
         check_errors(errs, label)
+        step_errs = k1_errors(k.lstm_fwd_stepwise(*args), want, label)
+        check_errors(step_errs, f"{label} per-step route")
+        del want
         reps = 20 if T > 1 else 200
-        kernel_ms = cuda_ms(lambda: lstm_fwd(*args), reps)
-        queued_ms = cuda_ms(lambda: lstm_fwd(*args), 5, queued=True)
-        plain_ms = cuda_ms(lambda: lstm_fwd_reference(*args),
+        times = {}
+        for name, fn in (("kernel", k.lstm_fwd_persistent),
+                         ("stepwise", k.lstm_fwd_stepwise)):
+            times[f"{name}_ms"] = cuda_ms(lambda: fn(*args), reps)
+            times[f"{name}_queued_ms"] = cuda_ms(lambda: fn(*args), 5,
+                                                 queued=True)
+            times[f"{name}_queued_us_per_step"] = \
+                1e3 * times[f"{name}_queued_ms"] / T
+        plain_ms = cuda_ms(lambda: k.lstm_fwd_reference(*args),
                            3 if T > 1 else 50)
         # Yardstick only, never called by the port: cuDNN's LSTM in bf16 at
         # full lengths for each layer input width at this shape.  It also
@@ -457,9 +491,8 @@ def phase_k1(dev):
                 lib.append(cuda_ms(lambda: cell(x, (h0, h0)), reps))
         bound_ms, bound_by = bound(*k1_work(T, B, H))
         # Per-call event times: at T=1 they hold the wrapper's host time.
-        emit("k1", shape=label, T=T, B=B, H=H, max_abs_err=errs,
-             kernel_ms=kernel_ms, kernel_queued_ms=queued_ms,
-             plain_ms=plain_ms,
+        emit("k1", shape=label, T=T, B=B, H=H, route=route, max_abs_err=errs,
+             stepwise_max_abs_err=step_errs, **times, plain_ms=plain_ms,
              library_ms=dict(zip(widths, lib)), bound_ms=bound_ms,
              bound_by=bound_by, tolerance=K1_TOL)
 
@@ -537,16 +570,18 @@ def k2_errors(got, want, label: str):
     return errs, rel
 
 
-def cudnn_lstm_backward(shapes, dev):
+def cudnn_lstm_backward(shapes, dev, bidirectional: bool = False):
     """Yardstick only, never called by the port: a function that runs the
     backward of cuDNN's ``nn.LSTM(H, H)`` in bf16 at full lengths (dx and
     every weight's gradient, not only what K2 computes) once for each ``(T,
-    B, H)`` of ``shapes``, from forwards kept for it."""
+    B, H)`` of ``shapes``, from forwards kept for it; ``bidirectional``
+    runs both directions of a layer in each call."""
     from torch import nn
 
     work = []
     for T, B, H in shapes:
-        cell = nn.LSTM(H, H).to(dev, torch.bfloat16)
+        cell = nn.LSTM(H, H, bidirectional=bidirectional).to(dev,
+                                                              torch.bfloat16)
         x = torch.randn(T, B, H, device=dev, dtype=torch.bfloat16,
                         requires_grad=True)
         out, _ = cell(x)
@@ -560,10 +595,56 @@ def cudnn_lstm_backward(shapes, dev):
     return run
 
 
+def cudnn_lstm_forward(shapes, dev, bidirectional: bool = False):
+    """Yardstick only, never called by the port: a function that runs
+    cuDNN's ``nn.LSTM(H, H)`` forward in bf16 at full lengths, inference
+    mode, once for each ``(T, B, H)`` of ``shapes`` (it also computes the
+    input projection, which the port does outside K1)."""
+    from torch import nn
+
+    cells, work = {}, []
+    for T, B, H in shapes:
+        if H not in cells:
+            cells[H] = nn.LSTM(H, H, bidirectional=bidirectional).to(
+                dev, torch.bfloat16)
+        work.append((cells[H], torch.randn(T, B, H, device=dev,
+                                           dtype=torch.bfloat16)))
+
+    def run():
+        with torch.inference_mode():
+            for cell, x in work:
+                cell(x)
+
+    return run
+
+
+def cudnn_replay(calls, kind: str, dev, bidirectional: bool = False):
+    """Yardstick only: the traced device ms of cuDNN's ``nn.LSTM(H, H)``
+    forward (``kind`` "k1") or backward ("k2") at the shapes of recorded
+    K1 or K2 calls (``bidirectional``: one call for each pair of
+    directions), after a warm-up.  Returns ``(ms, description)``."""
+    shapes = [tuple(a[0].shape[:2]) + (a[0].shape[2] // 4,) if kind == "k1"
+              else tuple(a[4].shape[:2]) + (a[4].shape[2] // 4,)
+              for a in calls]
+    if bidirectional:
+        shapes = shapes[::2]
+    run = (cudnn_lstm_forward if kind == "k1"
+           else cudnn_lstm_backward)(shapes, dev, bidirectional)
+    run()  # warm-up
+    _, spans = device_trace(run, or_events=True)
+    del run
+    torch.cuda.empty_cache()
+    what = ("forward (also the input projection)" if kind == "k1"
+            else "backward (also dW, dx)")
+    bi = ", bidirectional" if bidirectional else ""
+    return span_ms(spans), (f"cuDNN nn.LSTM(H, H{bi}) bf16 {what}, "
+                            f"{len(shapes)} calls")
+
+
 def phase_k2(dev):
-    """K2 against its plain version, timed, at the train step's shapes."""
-    from myrtlespeech_tpu_torch.ops.cuda.lstm_kernel import (
-        lstm_bwd, lstm_bwd_reference)
+    """K2 against its plain version, timed, at the train step's shapes, on
+    both routes, each also queued (as in k1)."""
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
 
     B = FLAGSHIP_BATCH
     shapes = {"enc_T501": (501, 1024), "enc_T251": (251, 1024),
@@ -571,21 +652,30 @@ def phase_k2(dev):
     torch.manual_seed(1)  # the yardstick's weights and inputs
     for i, (label, (T, H)) in enumerate(shapes.items()):
         args = _k2_case(T, B, H, seed=20 + i, dev=dev)
-        got = lstm_bwd(*args, need_dh0=False)
-        torch.cuda.synchronize()
-        errs, rel = k2_errors(got, lstm_bwd_reference(*args, need_dh0=False),
-                              label)
-        kernel_ms = cuda_ms(lambda: lstm_bwd(*args, need_dh0=False), 10)
-        queued_ms = cuda_ms(lambda: lstm_bwd(*args, need_dh0=False), 5,
-                            queued=True)
-        plain_ms = cuda_ms(lambda: lstm_bwd_reference(*args, need_dh0=False),
-                           2)
+        want = k.lstm_bwd_reference(*args, need_dh0=False)
+        errs, rel = k2_errors(k.lstm_bwd(*args, need_dh0=False), want, label)
+        step_errs, step_rel = k2_errors(
+            k.lstm_bwd_stepwise(*args, need_dh0=False), want,
+            f"{label} per-step route")
+        del want
+        times = {}
+        for name, fn in (("kernel", k.lstm_bwd_persistent),
+                         ("stepwise", k.lstm_bwd_stepwise)):
+            times[f"{name}_ms"] = cuda_ms(lambda: fn(*args, need_dh0=False),
+                                          10)
+            times[f"{name}_queued_ms"] = cuda_ms(
+                lambda: fn(*args, need_dh0=False), 5, queued=True)
+            times[f"{name}_queued_us_per_step"] = \
+                1e3 * times[f"{name}_queued_ms"] / T
+        plain_ms = cuda_ms(lambda: k.lstm_bwd_reference(*args,
+                                                        need_dh0=False), 2)
         lib_ms = cuda_ms(cudnn_lstm_backward([(T, B, H)], dev), 10)
         bound_ms, bound_by = bound(*k2_work(T, B, H))
-        emit("k2", shape=label, T=T, B=B, H=H, max_abs_err=errs,
-             err_over_magnitude=rel, tolerance=K2_TOL, kernel_ms=kernel_ms,
-             kernel_queued_ms=queued_ms,
-             plain_ms=plain_ms, library_ms=lib_ms,
+        emit("k2", shape=label, T=T, B=B, H=H, route=k._route(dev, B, H),
+             max_abs_err=errs, err_over_magnitude=rel,
+             stepwise_max_abs_err=step_errs,
+             stepwise_err_over_magnitude=step_rel, tolerance=K2_TOL,
+             **times, plain_ms=plain_ms, library_ms=lib_ms,
              library="cuDNN nn.LSTM(H, H) bf16 backward (also dW, dx)",
              bound_ms=bound_ms, bound_by=bound_by)
 
@@ -996,6 +1086,7 @@ def phase_flagship(dev):
 
     lstm_kernel.lstm_fwd_reference = counting_plain
     launches, times = [], []
+    lstm_kernel.lstm_fwd_stepwise.launches = 0
     try:
         for _ in range(3):
             lstm_kernel.lstm_fwd.launches = 0
@@ -1014,10 +1105,24 @@ def phase_flagship(dev):
     if plain_calls:
         raise AssertionError(f"K1's plain version ran {len(plain_calls)} "
                              "times on the card's main path")
+    if lstm_kernel.lstm_fwd_stepwise.launches:
+        raise AssertionError(f"K1's per-step route launched "
+                             f"{lstm_kernel.lstm_fwd_stepwise.launches} "
+                             "times on the serve path")
+    # Latency by route within one run: the same batch with K1's per-step
+    # route in its place (StepwiseRoute), in turns with the persistent one.
+    turns = []
+    for route in ("persistent", "stepwise", "stepwise", "persistent"):
+        with StepwiseRoute() if route == "stepwise" \
+                else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.transcribe(wav, lens)
+            turns.append([route, 1e3 * (time.perf_counter() - t0)])
     if min(launches) == 0 or len(set(launches)) != 1:
         raise AssertionError(f"K1 launches per run on the main path: "
                              f"{launches}")
-    k1_spans = [sp for sp in spans if "lstm_step_kernel" in sp[0]]
+    k1_spans = named(spans, TRACE_NAMES["k1"])
     if len(k1_spans) != launches[-1]:
         raise AssertionError(f"the trace holds {len(k1_spans)} K1 kernels, "
                              f"the counter {launches[-1]}")
@@ -1043,11 +1148,17 @@ def phase_flagship(dev):
         raise AssertionError(f"encoder output {tuple(f.shape)} not finite "
                              "or of the wrong shape")
 
-    enc = 2 * 501 + 3 * 251
+    enc = 5  # one persistent launch per encoder layer
     pred = launches[0] - enc
     if pred <= 0 or pred % 2:
         raise AssertionError(f"K1 launches {launches[0]}: expected {enc} "
-                             "encoder steps plus 2 per prediction step")
+                             "encoder layers plus 2 per prediction step")
+    # The per-step route on the same path, traced: one launch per encoder
+    # step (2 x 501 + 3 x 251) and per prediction call (T=1).
+    steps = 2 * 501 + 3 * 251 + pred
+    stepwise_ms = stepwise_trace(
+        lambda: tr.transcribe(wav, lens),
+        dict.fromkeys(TRACE_NAMES, 0) | {"k1_step": steps})["k1"]
     ms = 1e3 * statistics.median(times)
     busy = busy_ms(spans)
     emit("flagship", config="rnn_t_en", batch=FLAGSHIP_BATCH,
@@ -1056,74 +1167,68 @@ def phase_flagship(dev):
          audio_s_per_s=FLAGSHIP_BATCH * FLAGSHIP_SECONDS / (ms / 1e3),
          k1_launches=launches[0], k1_encoder_launches=enc,
          k1_prediction_launches=pred, decode_iterations=pred // 2 - 1,
-         **stages, traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
+         k1_steps=steps, k1_stepwise_device_ms=stepwise_ms,
+         **stages, route_turns_ms=turns, traced_wall_ms=traced_wall_ms,
+         device_busy_ms=busy,
          device_idle_share=1.0 - busy / traced_wall_ms,
          device_events=len(spans), k1_device_ms=span_ms(k1_spans),
          device_ms_by_kernel=dict(by_kernel.most_common(10)),
          token_lens=tlens.tolist())
     return {"launches": launches[-1], "k1_ms": span_ms(k1_spans),
+            "stepwise_ms": stepwise_ms,
             "calls": record_many({"k1": (lstm_kernel, "lstm_fwd")},
                                  lambda: tr.transcribe(wav, lens))["k1"]}
 
 
+def max_into(acc: dict, errs: dict) -> None:
+    """acc[name] = max(acc.get(name, 0), errs[name]) for every name."""
+    for n, e in errs.items():
+        acc[n] = max(acc.get(n, 0.0), e)
+
+
+def path_figures(launches: int, ms: float, steps: int, stepwise_ms: float,
+                 replays: dict) -> dict:
+    """One main path's K1 or K2 figures for the kernels line: launches and
+    device ms of the traced main path (persistent route), its steps and us
+    a step; the per-step route's device ms and us a step on the same path
+    (``stepwise_trace``); cuDNN's and the plain version's ms and the bound
+    (``lstm_replays``, or the serve path's own)."""
+    return {"launches": launches, "ms": ms, "steps": steps,
+            "us_per_step": 1e3 * ms / steps, "stepwise_ms": stepwise_ms,
+            "stepwise_us_per_step": 1e3 * stepwise_ms / steps,
+            **{k: replays[k] for k in ("library_ms", "library", "plain_ms",
+                                       "plain_calls", "bound_ms",
+                                       "max_abs_err") if k in replays}}
+
+
 def phase_main_path_k1(dev, flagship):
     """K1 on the flagship main path's own inputs: every K1 call of one
-    ``transcribe``, replayed through K1, its plain version and cuDNN.
-
-    The replays are traced like the main path, so all three times are
-    device time.  The cuDNN yardstick is ``nn.LSTM(4H, H)`` in bf16 with an
-    identity input matrix, so that it takes ``x_proj`` as it is; it also
-    runs that (T*B, 4H) x (4H, 4H) product, drops the length mask and keeps
-    its state in bf16.
-    """
-    from torch import nn
-
-    from myrtlespeech_tpu_torch.ops.cuda.lstm_kernel import (
-        lstm_fwd, lstm_fwd_reference)
+    ``transcribe``, replayed through both routes (errors against the plain
+    version), through the plain version and, at the same shapes, cuDNN's
+    ``nn.LSTM(H, H)`` forward, each replay traced for device time."""
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
 
     calls = flagship["calls"]
-    if sum(a[0].shape[0] for a in calls) != flagship["launches"]:
-        raise AssertionError("the recorded K1 calls do not add up to the "
-                             "main path's launches")
-    errs = dict.fromkeys(K1_OUTPUTS, 0.0)
+    if len(calls) != flagship["launches"]:
+        raise AssertionError("the recorded K1 calls do not match the main "
+                             "path's launches")
+    errs, step_errs = {}, {}
     with torch.inference_mode():  # the recorded inputs are inference tensors
         for args in calls:
-            got = lstm_fwd(*args)
-            for n, e in k1_errors(got, lstm_fwd_reference(*args),
-                                  "main path").items():
-                errs[n] = max(errs[n], e)
+            want = k.lstm_fwd_reference(*args)
+            max_into(errs, k1_errors(k.lstm_fwd(*args), want, "main path"))
+            max_into(step_errs, k1_errors(k.lstm_fwd_stepwise(*args), want,
+                                          "main path"))
     check_errors(errs, "main path")
+    check_errors(step_errs, "main path, per-step route")
 
     def plain_replay():
         with torch.inference_mode():
             for args in calls:
-                lstm_fwd_reference(*args)
+                k.lstm_fwd_reference(*args)
 
     _, plain_spans = device_trace(plain_replay, or_events=True)
-
-    cells, lib_args = {}, []
-    with torch.inference_mode():
-        for x_proj, _valid, w_hh, h0, c0, b in calls:
-            if id(w_hh) not in cells:
-                H = w_hh.shape[0]
-                cell = nn.LSTM(4 * H, H).to(dev)
-                cell.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
-                cell.weight_hh_l0.copy_(w_hh.t())
-                cell.bias_ih_l0.zero_()
-                cell.bias_hh_l0.zero_()
-                if b is not None:
-                    cell.bias_ih_l0.copy_(b)
-                cells[id(w_hh)] = cell.to(torch.bfloat16)
-            lib_args.append((cells[id(w_hh)], x_proj,
-                             (h0[None].to(torch.bfloat16),
-                              c0[None].to(torch.bfloat16))))
-
-    def library_replay():
-        with torch.inference_mode():
-            for cell, x, state in lib_args:
-                cell(x, state)
-
-    _, lib_spans = device_trace(library_replay, or_events=True)
+    library_ms, library = cudnn_replay(calls, "k1", dev)
 
     flops = nbytes = 0.0
     for x_proj, _valid, w_hh, _h0, _c0, b in calls:
@@ -1131,22 +1236,30 @@ def phase_main_path_k1(dev, flagship):
         f, n = k1_work(T, B, H4 // 4, bias=b is not None)
         flops, nbytes = flops + f, nbytes + n
     bound_ms, bound_by = bound(flops, nbytes)
-    emit("k1_main_path", calls=len(calls), launches=flagship["launches"],
-         max_abs_err=errs, tolerance=K1_TOL, kernel_device_ms=flagship["k1_ms"],
-         plain_device_ms=span_ms(plain_spans),
-         plain_device_events=len(plain_spans),
-         library_device_ms=span_ms(lib_spans),
-         library_device_events=len(lib_spans), gflop=flops / 1e9,
-         gbytes=nbytes / 1e9, bound_ms=bound_ms, bound_by=bound_by)
+    serve = path_figures(
+        flagship["launches"], flagship["k1_ms"],
+        sum(a[0].shape[0] for a in calls), flagship["stepwise_ms"],
+        {"library_ms": library_ms, "library": library,
+         "plain_ms": span_ms(plain_spans), "bound_ms": bound_ms})
+    emit("k1_main_path", calls=len(calls), max_abs_err=errs,
+         stepwise_max_abs_err=step_errs, tolerance=K1_TOL,
+         plain_device_events=len(plain_spans), gflop=flops / 1e9,
+         gbytes=nbytes / 1e9, bound_by=bound_by, **serve)
+    serve["max_abs_err"] = max(list(errs.values())
+                               + list(step_errs.values()))
     return {
         "name": "K1 lstm_fwd", "route": "cuda",
-        "source": "myrtlespeech_tpu_torch/csrc/lstm_fwd.cu",
+        "source": "myrtlespeech_tpu_torch/csrc/lstm_fwd_persistent.cu",
+        "stepwise_source": "myrtlespeech_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "myrtlespeech_tpu/ops/pallas/lstm_kernel.py:38 "
                     "(_lstm_kernel, pallas_call in _lstm_pallas_fwd_call :92)",
-        "launches": flagship["launches"], "max_abs_err": max(errs.values()),
-        "ms": flagship["k1_ms"], "kernel_ms": flagship["k1_ms"],
-        "plain_ms": span_ms(plain_spans), "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": span_ms(lib_spans),
+        "launches": flagship["launches"], "max_abs_err": serve["max_abs_err"],
+        "ms": flagship["k1_ms"], "us_per_step": serve["us_per_step"],
+        "stepwise_ms": serve["stepwise_ms"],
+        "stepwise_us_per_step": serve["stepwise_us_per_step"],
+        "plain_ms": serve["plain_ms"], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "paths": {"serve": serve},
     }
 
 
@@ -1155,6 +1268,8 @@ def _train_kernels():
                                                  lstm_kernel, rnnt_kernel)
 
     return {"k1": lstm_kernel.lstm_fwd, "k2": lstm_kernel.lstm_bwd,
+            "k1_step": lstm_kernel.lstm_fwd_stepwise,
+            "k2_step": lstm_kernel.lstm_bwd_stepwise,
             "k3": rnnt_kernel.rnnt_lattice_fwd,
             "k4": rnnt_kernel.rnnt_lattice_bwd,
             "k5": joint_kernel.joint_tail_fwd,
@@ -1172,6 +1287,15 @@ def _read_counts():
     return {k: fn.launches for k, fn in _train_kernels().items()}
 
 
+def no_stepwise(launches, label: str) -> None:
+    """Raises when K1's or K2's per-step route launched (``launches`` from
+    ``_read_counts``): every main path of the repo's configs takes the
+    persistent route."""
+    if launches["k1_step"] or launches["k2_step"]:
+        raise AssertionError(f"the per-step K1/K2 route launched on the "
+                             f"{label} path: {launches}")
+
+
 def _plain_guard():
     from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, joint_kernel,
                                                  lstm_kernel, rnnt_kernel)
@@ -1186,11 +1310,21 @@ def _plain_guard():
                        (ctc_kernel, "ctc_lattice_bwd_reference")])
 
 
-# Kernel names in a profiler trace.
-TRACE_NAMES = {"k1": "lstm_step_kernel", "k2": "lstm_bwd_step_kernel",
+# Kernel names in a profiler trace.  On a main path K1's and K2's launches
+# are the persistent kernels' (``k1``, ``k2``); ``k1_step``/``k2_step`` are
+# the per-step route's.
+TRACE_NAMES = {"k1": "lstm_fwd_persistent_kernel",
+               "k2": "lstm_bwd_persistent_kernel",
+               "k1_step": "lstm_step_kernel",
+               "k2_step": "lstm_bwd_step_kernel",
                "k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel",
                "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel",
                "k7": "ctc_fwd_kernel", "k8": "ctc_bwd_kernel"}
+
+
+def named(spans, name: str):
+    """The spans of the kernels whose name holds ``name``."""
+    return [sp for sp in spans if name in sp[0]]
 
 
 def trace_step(fn, want):
@@ -1206,13 +1340,65 @@ def trace_step(fn, want):
         counts = _read_counts()
         if counts != want:
             raise AssertionError(f"traced launches {counts}, expected {want}")
-        kernel_spans = {k: [sp for sp in spans if name in sp[0]]
+        kernel_spans = {k: named(spans, name)
                         for k, name in TRACE_NAMES.items()}
         found = {k: len(sp) for k, sp in kernel_spans.items()}
         if found == counts:
             return wall_ms, spans, kernel_spans, retries
     raise AssertionError(f"three traces held {found} kernels, the counters "
                          f"{counts}")
+
+
+class StepwiseRoute:
+    """Runs K1's and K2's per-step route in place of their dispatchers
+    while it is entered (the wrappers' callers look them up at call time):
+    the same main path, for the per-step route's time on it."""
+
+    def __init__(self):
+        from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel
+
+        self.module = lstm_kernel
+
+    def __enter__(self):
+        m = self.module
+        self.real = m.lstm_fwd, m.lstm_bwd
+        m.lstm_fwd, m.lstm_bwd = m.lstm_fwd_stepwise, m.lstm_bwd_stepwise
+        return self
+
+    def __exit__(self, *exc):
+        self.module.lstm_fwd, self.module.lstm_bwd = self.real
+        return False
+
+
+def stepwise_trace(fn, want):
+    """``fn`` (a main path) traced under ``StepwiseRoute``, with the launch
+    counters zeroed first; they must read ``want`` after it (``k1_step`` and
+    ``k2_step`` the path's LSTM steps, ``k1`` and ``k2`` 0).  As in
+    ``trace_step``, a trace whose per-step kernels do not number their
+    launches is taken again, at most twice more.  Returns the per-step
+    route's device ms of K1 and K2."""
+    for _ in range(3):
+        _zero_counts()
+        with StepwiseRoute():
+            _, spans = device_trace(fn)
+        counts = _read_counts()
+        if counts != want:
+            raise AssertionError(f"per-step route launches {counts}, "
+                                 f"expected {want}")
+        kern = {k: named(spans, TRACE_NAMES[f"{k}_step"])
+                for k in ("k1", "k2")}
+        if all(len(kern[k]) == counts[f"{k}_step"] for k in kern):
+            return {k: span_ms(sp) for k, sp in kern.items()}
+    raise AssertionError(f"three traces held {[len(v) for v in kern.values()]}"
+                         f" per-step kernels, the counters {counts}")
+
+
+def with_stepwise(launches: dict, steps: int) -> dict:
+    """A path's launch counts with K1 and K2 on the per-step route: one
+    launch a step each, none of the persistent kernels."""
+    return dict(launches, k1=0, k2=0,
+                k1_step=steps if launches["k1"] else 0,
+                k2_step=steps if launches["k2"] else 0)
 
 
 def phase_train(dev):
@@ -1293,8 +1479,11 @@ def phase_train(dev):
     busy = busy_ms(spans)
     # A second traced step, to show how far one trace's device times vary.
     again_wall_ms, again = device_trace(lambda: step(state, batch))
-    again_ms = {k: span_ms([sp for sp in again if name in sp[0]])
+    again_ms = {k: span_ms(named(again, name))
                 for k, name in TRACE_NAMES.items()}
+    # The same step with K1 and K2 on the per-step route, traced.
+    stepwise_ms = stepwise_trace(lambda: step(state, batch),
+                                 with_stepwise(traced, TRAIN_LSTM_STEPS))
     ms = 1e3 * statistics.median(times)
     emit("train", config="rnn_t_en", batch=B, seconds=secs,
          labels=TRAIN_LABELS, setup_s=setup_s, ms_per_step=ms,
@@ -1310,7 +1499,8 @@ def phase_train(dev):
          kernel_device_ms={k: span_ms(sp) for k, sp in kernel_spans.items()},
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
          again_traced_wall_ms=again_wall_ms,
-         again_device_busy_ms=busy_ms(again), again_kernel_device_ms=again_ms)
+         again_device_busy_ms=busy_ms(again), again_kernel_device_ms=again_ms,
+         stepwise_kernel_device_ms=stepwise_ms)
 
     # Every K1, K2, K3 and K4 call of one more step, recorded as it was
     # made for the replays.
@@ -1324,65 +1514,98 @@ def phase_train(dev):
     torch.cuda.synchronize()
     del state
     return {"ms": {k: span_ms(sp) for k, sp in kernel_spans.items()},
-            "launches": traced, "calls": calls}
+            "stepwise_ms": stepwise_ms, "launches": traced, "calls": calls}
+
+
+def lstm_replays(k1_calls, k2_calls, label: str, dev,
+                 plain_per_shape: bool = False, bidirectional: bool = False):
+    """K1 and K2 on a main path's recorded calls.  Each call checked (all,
+    or with ``plain_per_shape`` the first of each shape) goes through both
+    routes and the plain version: the largest errors, raising beyond
+    K1_TOL / K2_TOL; the plain version's traced device time over the same
+    calls; cuDNN's at the shapes of every call (``cudnn_replay``); the
+    bound over every call.  Returns ``{"k1": ..., "k2": ...}``, each with
+    ``max_abs_err`` the largest error of either route."""
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+
+    checked = {"k1": k1_calls, "k2": k2_calls}
+    if plain_per_shape:
+        checked = {"k1": list(_first_per_shape(
+            k1_calls, lambda a: a[0].shape).values()),
+            "k2": list(_first_per_shape(
+                k2_calls, lambda a: a[4].shape).values())}
+    out = {}
+    with torch.no_grad():
+        errs, step_errs = {}, {}
+        for args in checked["k1"]:
+            want = k.lstm_fwd_reference(*args)
+            max_into(errs, k1_errors(k.lstm_fwd(*args), want, label))
+            max_into(step_errs, k1_errors(k.lstm_fwd_stepwise(*args), want,
+                                          label))
+            del want
+        check_errors(errs, label)
+        check_errors(step_errs, f"{label}, per-step route")
+        out["k1"] = {"max_abs_err": errs, "stepwise_max_abs_err": step_errs}
+        errs, rels, step_errs, step_rels = {}, {}, {}, {}
+        for args in checked["k2"]:
+            want = k.lstm_bwd_reference(*args)
+            e, r = k2_errors(k.lstm_bwd(*args), want, label)
+            max_into(errs, e)
+            max_into(rels, r)
+            e, r = k2_errors(k.lstm_bwd_stepwise(*args), want,
+                             f"{label}, per-step route")
+            max_into(step_errs, e)
+            max_into(step_rels, r)
+            del want
+        out["k2"] = {"max_abs_err": errs, "err_over_magnitude": rels,
+                     "stepwise_max_abs_err": step_errs,
+                     "stepwise_err_over_magnitude": step_rels}
+
+    def plain(ref, calls):
+        def run():
+            with torch.no_grad():
+                for args in calls:
+                    ref(*args)
+        return span_ms(device_trace(run, or_events=True)[1])
+
+    out["k1"]["plain_ms"] = plain(k.lstm_fwd_reference, checked["k1"])
+    out["k2"]["plain_ms"] = plain(k.lstm_bwd_reference, checked["k2"])
+    works = {"k1": [k1_work(*a[0].shape[:2], a[0].shape[2] // 4,
+                            a[5] is not None) for a in k1_calls],
+             "k2": [k2_work(*a[4].shape[:2], a[4].shape[2] // 4, bool(a[8]))
+                    for a in k2_calls]}
+    for kind, calls in (("k1", k1_calls), ("k2", k2_calls)):
+        o = out[kind]
+        o["plain_calls"] = len(checked[kind])
+        o["library_ms"], o["library"] = cudnn_replay(calls, kind, dev,
+                                                     bidirectional)
+        o["bound_ms"], o["bound_by"] = bound(
+            sum(w[0] for w in works[kind]), sum(w[1] for w in works[kind]))
+        o["persistent_max_abs_err"] = o.pop("max_abs_err")
+        o["max_abs_err"] = max(list(o["persistent_max_abs_err"].values())
+                               + list(o["stepwise_max_abs_err"].values()))
+    return out
 
 
 def phase_train_main_path(dev, trained):
     """K1, K2, K3 and K4 on the train step's own inputs: every call of one
     step replayed through the kernel (errors against the plain version),
-    the plain version and, for K2, cuDNN's LSTM backward; device times
-    traced.  Returns K1's errors and plain time on the train step, and the
-    kernels line's entries for K2, K3 and K4."""
-    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel, rnnt_kernel
+    the plain version and, for K1 and K2, the other route and cuDNN
+    (``lstm_replays``); device times traced.  Returns K1's train-step
+    figures and the kernels line's entries for K2, K3 and K4."""
+    from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel
 
     calls = trained["calls"]
-    k1_calls = calls["k1"]
-    if sum(a[0].shape[0] for a in k1_calls) != trained["launches"]["k1"]:
-        raise AssertionError("the recorded K1 calls do not add up to the "
+    launches, ms = trained["launches"], trained["ms"]
+    if (len(calls["k1"]), len(calls["k2"])) != (launches["k1"],
+                                                launches["k2"]):
+        raise AssertionError("the recorded K1/K2 calls do not match the "
                              "step's launches")
-    k1_errs = dict.fromkeys(K1_OUTPUTS, 0.0)
-    with torch.no_grad():
-        for args in k1_calls:
-            for n, e in k1_errors(lstm_kernel.lstm_fwd(*args),
-                                  lstm_kernel.lstm_fwd_reference(*args),
-                                  "train step").items():
-                k1_errs[n] = max(k1_errs[n], e)
-    check_errors(k1_errs, "train step")
-
-    def k1_plain_replay():
-        with torch.no_grad():
-            for args in k1_calls:
-                lstm_kernel.lstm_fwd_reference(*args)
-
-    _, k1_plain = device_trace(k1_plain_replay, or_events=True)
-
-    k2_calls = calls["k2"]
-    if sum(a[4].shape[0] + int(a[8]) for a in k2_calls) \
-            != trained["launches"]["k2"]:
-        raise AssertionError("the recorded K2 calls do not add up to the "
-                             "step's launches")
-    errs, rels = {}, {}
-    for args in k2_calls:
-        e, r = k2_errors(lstm_kernel.lstm_bwd(*args),
-                         lstm_kernel.lstm_bwd_reference(*args), "train step")
-        for n in e:
-            errs[n] = max(errs.get(n, 0.0), e[n])
-            rels[n] = max(rels.get(n, 0.0), r[n])
-    _, k2_plain = device_trace(
-        lambda: [lstm_kernel.lstm_bwd_reference(*a) for a in k2_calls],
-        or_events=True)
-    k2_shapes = [(a[4].shape[0], a[4].shape[1], a[4].shape[2] // 4)
-                 for a in k2_calls]
-    cudnn = cudnn_lstm_backward(k2_shapes, dev)
-    cudnn()  # warm-up
-    _, k2_lib = device_trace(cudnn, or_events=True)
-    del cudnn
-    flops = nbytes = 0.0
-    for args in k2_calls:
-        T, B, H4 = args[4].shape
-        f, n = k2_work(T, B, H4 // 4, need_dh0=bool(args[8]))
-        flops, nbytes = flops + f, nbytes + n
-    k2_bound, k2_by = bound(flops, nbytes)
+    lstm = lstm_replays(calls["k1"], calls["k2"], "train step", dev)
+    k1, k2 = lstm["k1"], lstm["k2"]
+    k1_train, k2_train = (
+        path_figures(launches[k], ms[k], TRAIN_LSTM_STEPS,
+                     trained["stepwise_ms"][k], lstm[k]) for k in ("k1", "k2"))
 
     (k3_args,), (k4_args,) = calls["k3"], calls["k4"]
     fwd = rnnt_kernel.rnnt_lattice_fwd(*k3_args)
@@ -1399,32 +1622,29 @@ def phase_train_main_path(dev, trained):
     B, T, U1 = k3_args[0].shape
     k3_bound, k3_by = bound(*k3_work(B, T, U1), peak=PEAK_FP32_FLOPS)
     k4_bound, k4_by = bound(*k4_work(B, T, U1), peak=PEAK_FP32_FLOPS)
-    emit("train_main_path", k1_calls=len(k1_calls),
-         k1_max_abs_err=k1_errs, k1_tolerance=K1_TOL,
-         k1_plain_device_ms=span_ms(k1_plain), k2_calls=len(k2_calls),
-         k2_shapes=[list(a[4].shape) for a in k2_calls],
-         k2_max_abs_err=errs, k2_err_over_magnitude=rels,
-         k2_tolerance=K2_TOL, k2_plain_device_ms=span_ms(k2_plain),
-         k2_library_device_ms=span_ms(k2_lib),
-         k2_library_device_events=len(k2_lib),
-         k2_library="cuDNN nn.LSTM(H, H) bf16 backward (also dW, dx)",
-         k2_bound_ms=k2_bound, k2_bound_by=k2_by, lattice=[B, T, U1],
+    emit("train_main_path", k1_calls=len(calls["k1"]),
+         k2_calls=len(calls["k2"]),
+         k2_shapes=[list(a[4].shape) for a in calls["k2"]], k1=k1, k2=k2,
+         k1_train=k1_train, k2_train=k2_train,
+         k1_tolerance=K1_TOL, k2_tolerance=K2_TOL, lattice=[B, T, U1],
          lattice_max_abs_err=lat_errs,
          k3_plain_device_ms=span_ms(k3_plain),
          k4_plain_device_ms=span_ms(k4_plain), k3_bound_ms=k3_bound,
          k4_bound_ms=k4_bound)
-    ms, launches = trained["ms"], trained["launches"]
     rnnt_src = "myrtlespeech_tpu_torch/csrc/rnnt_lattice.cu"
-    k1_train = {"train_max_abs_err": max(k1_errs.values()),
-                "train_plain_ms": span_ms(k1_plain)}
     return k1_train, [
         {"name": "K2 lstm_bwd", "route": "cuda",
-         "source": "myrtlespeech_tpu_torch/csrc/lstm_bwd.cu",
+         "source": "myrtlespeech_tpu_torch/csrc/lstm_bwd_persistent.cu",
+         "stepwise_source": "myrtlespeech_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "myrtlespeech_tpu/ops/pallas/lstm_kernel.py:156 "
                      "(_bwd_kernel, pallas_call in _bwd_pallas_call :221)",
-         "launches": launches["k2"], "max_abs_err": max(errs.values()),
-         "ms": ms["k2"], "plain_ms": span_ms(k2_plain), "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": span_ms(k2_lib)},
+         "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
+         "ms": ms["k2"], "us_per_step": k2_train["us_per_step"],
+         "stepwise_ms": k2_train["stepwise_ms"],
+         "stepwise_us_per_step": k2_train["stepwise_us_per_step"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+         "paths": {"train": k2_train}},
         {"name": "K3 rnnt_lattice_fwd", "route": "cuda", "source": rnnt_src,
          "replaces": "myrtlespeech_tpu/ops/pallas/rnnt_kernel.py:76 "
                      "(_fwd_kernel, pallas_call in _call_fwd :199)",
@@ -1637,37 +1857,23 @@ def phase_train_long(dev):
     for name, s, e in spans:
         by_kernel[name[:80]] += (e - s) / 1e3
     busy = busy_ms(spans)
+    stepwise_ms = stepwise_trace(lambda: step(state, batch),
+                                 with_stepwise(traced, LONG_LSTM_STEPS))
 
-    # The step's calls, for the replays: one K1 and K2 call of each shape,
-    # K5's and K6's one call each.
+    # The step's calls, for the replays: every K1 and K2 call (the plain
+    # versions on the first of each shape), K5's and K6's one call each.
     calls = record_many({"k1": (lstm_kernel, "lstm_fwd"),
                          "k2": (lstm_kernel, "lstm_bwd"),
                          "k5": (joint_kernel, "joint_tail_fwd"),
                          "k6": (joint_kernel, "joint_tail_bwd")},
                         lambda: step(state, batch))
     torch.cuda.synchronize()
-    k1_calls = _first_per_shape(calls.pop("k1"), lambda a: a[0].shape)
-    k2_calls = _first_per_shape(calls.pop("k2"), lambda a: a[4].shape)
+    lstm = lstm_replays(calls.pop("k1"), calls.pop("k2"), "long step", dev,
+                        plain_per_shape=True)
     (k5_args,), (k6_args,) = calls["k5"], calls["k6"]
     del calls
-    k1_errs = dict.fromkeys(K1_OUTPUTS, 0.0)
-    k2_errs, k2_rel = {}, {}
+    torch.cuda.empty_cache()
     with torch.no_grad():
-        for args in k1_calls.values():
-            for n, e in k1_errors(lstm_kernel.lstm_fwd(*args),
-                                  lstm_kernel.lstm_fwd_reference(*args),
-                                  "long step").items():
-                k1_errs[n] = max(k1_errs[n], e)
-        check_errors(k1_errs, "long step")
-        for args in k2_calls.values():
-            e, r = k2_errors(lstm_kernel.lstm_bwd(*args),
-                             lstm_kernel.lstm_bwd_reference(*args),
-                             "long step")
-            for n in e:
-                k2_errs[n] = max(k2_errs.get(n, 0.0), e[n])
-                k2_rel[n] = max(k2_rel.get(n, 0.0), r[n])
-        del k1_calls, k2_calls
-        torch.cuda.empty_cache()
         got = joint_kernel.joint_tail_fwd(*k5_args) \
             + joint_kernel.joint_tail_bwd(*k6_args)
         want = _plain_in_rows(joint_kernel.joint_tail_fwd_reference, k5_args,
@@ -1725,6 +1931,9 @@ def phase_train_long(dev):
 
     ms = 1e3 * statistics.median(times)
     kernel_ms = {k: span_ms(sp) for k, sp in kernel_spans.items()}
+    k1_long, k2_long = (
+        path_figures(traced[k], kernel_ms[k], LONG_LSTM_STEPS,
+                     stepwise_ms[k], lstm[k]) for k in ("k1", "k2"))
     emit("train_long", config="rnn_t_en", batch=B, seconds=secs, labels=U,
          lattice=[B, T2, U + 1], path="joint_tail", setup_s=setup_s,
          ms_per_step=ms, ms_runs=[1e3 * t for t in times],
@@ -1739,14 +1948,17 @@ def phase_train_long(dev):
          device_events=len(spans), trace_retries=retries,
          kernel_device_ms=kernel_ms,
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
-         k1_max_abs_err=k1_errs, k1_tolerance=K1_TOL,
-         k2_max_abs_err=k2_errs, k2_err_over_magnitude=k2_rel,
-         k56_max_abs_err=k56_errs, k56_err_over_magnitude=k56_rel,
+         k1=lstm["k1"], k2=lstm["k2"], k1_long=k1_long, k2_long=k2_long,
+         k1_tolerance=K1_TOL, k2_tolerance=K2_TOL, k56_max_abs_err=k56_errs,
+         k56_err_over_magnitude=k56_rel,
          k5_plain_device_ms=span_ms(k5_plain),
          k6_plain_device_ms=span_ms(k6_plain), k5_bound_ms=b5,
-         k6_bound_ms=b6, chunked=chunked)
+         k6_bound_ms=b6,
+         k3_bound_ms=bound(*k3_work(B, T2, U + 1), peak=PEAK_FP32_FLOPS)[0],
+         k4_bound_ms=bound(*k4_work(B, T2, U + 1), peak=PEAK_FP32_FLOPS)[0],
+         chunked=chunked)
     src = "myrtlespeech_tpu_torch/csrc/joint_tail.cu"
-    return [
+    return k1_long, k2_long, [
         {"name": "K5 joint_tail_fwd", "route": "cuda", "source": src,
          "replaces": "myrtlespeech_tpu/ops/pallas/joint_kernel.py:106 "
                      "(_fwd_kernel, pallas_call in _jt_impl :271)",
@@ -1798,6 +2010,7 @@ def phase_medium_falls(dev):
     emit("medium_falls", config="synthetic_medium_rnnt", batch=32,
          steps=MEDIUM_STEPS, path="chunked", losses=losses, seconds=seconds,
          launches=launches)
+    no_stepwise(launches, "medium train")
     if (launches["k3"], launches["k5"]) != (MEDIUM_STEPS, 0):
         raise AssertionError(f"the medium steps did not take the chunked "
                              f"path: {launches}")
@@ -1931,14 +2144,17 @@ def phase_train_ctc(dev):
 
     traced_wall_ms, spans, kernel_spans, retries = trace_step(
         lambda: step(state, batch), CTC_LAUNCHES)
+    stepwise_ms = stepwise_trace(lambda: step(state, batch),
+                                 with_stepwise(CTC_LAUNCHES, CTC_LSTM_STEPS))
     by_kernel = collections.Counter()
     for name, s, e in spans:
         by_kernel[name[:80]] += (e - s) / 1e3
     busy = busy_ms(spans)
     kernel_ms = {k: span_ms(sp) for k, sp in kernel_spans.items()}
 
-    # The step's calls, for the replays: one K1 and K2 call of each shape,
-    # K7's and K8's one call each, and the CTC loss's own inputs.
+    # The step's calls, for the replays: every K1 and K2 call (the plain
+    # versions on the first of each shape), K7's and K8's one call each,
+    # and the CTC loss's own inputs.
     calls = record_many({"k1": (lstm_kernel, "lstm_fwd"),
                          "k2": (lstm_kernel, "lstm_bwd"),
                          "k7": (ctc_kernel, "ctc_lattice_fwd"),
@@ -1946,41 +2162,13 @@ def phase_train_ctc(dev):
                          "loss": (ctc_kernel, "ctc_loss_lattice")},
                         lambda: step(state, batch))
     torch.cuda.synchronize()
-    work = [k1_work(*a[0].shape[:2], a[0].shape[2] // 4) for a in calls["k1"]]
-    k1_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work))
-    work = [k2_work(*a[4].shape[:2], a[4].shape[2] // 4, bool(a[8]))
-            for a in calls["k2"]]
-    k2_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work))
-    k1_calls = _first_per_shape(calls.pop("k1"), lambda a: a[0].shape)
-    k2_calls = _first_per_shape(calls.pop("k2"), lambda a: a[4].shape)
+    lstm = lstm_replays(calls.pop("k1"), calls.pop("k2"), "CTC step", dev,
+                        plain_per_shape=True, bidirectional=True)
     (k7_args,), (k8_args,), (loss_args,) = (calls["k7"], calls["k8"],
                                             calls["loss"])
     del calls
-    k1_errs = dict.fromkeys(K1_OUTPUTS, 0.0)
-    k2_errs, k2_rel = {}, {}
+    torch.cuda.empty_cache()
     with torch.no_grad():
-        for args in k1_calls.values():
-            for n, e in k1_errors(lstm_kernel.lstm_fwd(*args),
-                                  lstm_kernel.lstm_fwd_reference(*args),
-                                  "CTC step").items():
-                k1_errs[n] = max(k1_errs[n], e)
-        check_errors(k1_errs, "CTC step")
-        _, k1_plain = device_trace(lambda: [
-            lstm_kernel.lstm_fwd_reference(*a) for a in k1_calls.values()],
-            or_events=True)
-        for args in k2_calls.values():
-            e, r = k2_errors(lstm_kernel.lstm_bwd(*args),
-                             lstm_kernel.lstm_bwd_reference(*args),
-                             "CTC step")
-            for n in e:
-                k2_errs[n] = max(k2_errs.get(n, 0.0), e[n])
-                k2_rel[n] = max(k2_rel.get(n, 0.0), r[n])
-        _, k2_plain = device_trace(lambda: [
-            lstm_kernel.lstm_bwd_reference(*a) for a in k2_calls.values()],
-            or_events=True)
-        k1_shapes = [list(a[0].shape) for a in k1_calls.values()]
-        k2_shapes = [list(a[4].shape) for a in k2_calls.values()]
-        del k1_calls, k2_calls
         fwd = ctc_kernel.ctc_lattice_fwd(*k7_args)
         bwd = ctc_kernel.ctc_lattice_bwd(*k8_args)
         fwd_ref = ctc_kernel.ctc_lattice_fwd_reference(*k7_args)
@@ -2030,6 +2218,7 @@ def phase_train_ctc(dev):
     plain_launches = _read_counts()
     rel = {"loss": abs(kern[0] - plain[0]) / abs(plain[0]),
            "grad_norm": abs(kern[1] - plain[1]) / abs(plain[1])}
+    no_stepwise(kern_launches, "DS2 loss and gradient")
     if kern_launches["k7"] != 1 or any(plain_launches.values()):
         raise AssertionError(f"kernel run launches {kern_launches}, plain "
                              f"run {plain_launches}")
@@ -2050,6 +2239,9 @@ def phase_train_ctc(dev):
     torch.cuda.empty_cache()
 
     ms = 1e3 * statistics.median(times)
+    k1_ds2, k2_ds2 = (
+        path_figures(CTC_LAUNCHES[k], kernel_ms[k], CTC_LSTM_STEPS,
+                     stepwise_ms[k], lstm[k]) for k in ("k1", "k2"))
     emit("train_ctc", config="deep_speech_2_en", batch=B, seconds=secs,
          labels=U, lattice=[Bk, Tk, S], parameters=n_params,
          setup_s=setup_s, ms_per_step=ms, ms_runs=[1e3 * t for t in times],
@@ -2065,12 +2257,8 @@ def phase_train_ctc(dev):
          device_events=len(spans), trace_retries=retries,
          kernel_device_ms=kernel_ms,
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
-         k1_bound_ms=k1_bound, k2_bound_ms=k2_bound,
-         k1_shapes=k1_shapes, k1_max_abs_err=k1_errs, k1_tolerance=K1_TOL,
-         k1_plain_device_ms_one_call_each=span_ms(k1_plain),
-         k2_shapes=k2_shapes, k2_max_abs_err=k2_errs,
-         k2_err_over_magnitude=k2_rel,
-         k2_plain_device_ms_one_call_each=span_ms(k2_plain),
+         k1=lstm["k1"], k2=lstm["k2"], k1_ds2=k1_ds2, k2_ds2=k2_ds2,
+         k1_tolerance=K1_TOL, k2_tolerance=K2_TOL,
          k78_max_abs_err=k78_errs, k7_plain_device_ms=span_ms(k7_plain),
          k8_plain_device_ms=span_ms(k8_plain),
          library_fwd_device_ms=span_ms(lib_fwd),
@@ -2080,10 +2268,6 @@ def phase_train_ctc(dev):
          plain_tolerance=CTC_PLAIN_TOL, eval_loss=eval_loss,
          eval_launches=eval_launches)
     src = "myrtlespeech_tpu_torch/csrc/ctc_lattice.cu"
-    k1_ds2 = {"launches": CTC_LAUNCHES["k1"], "ms": kernel_ms["k1"],
-              "max_abs_err": max(k1_errs.values()), "bound_ms": k1_bound[0]}
-    k2_ds2 = {"launches": CTC_LAUNCHES["k2"], "ms": kernel_ms["k2"],
-              "max_abs_err": max(k2_errs.values()), "bound_ms": k2_bound[0]}
     return k1_ds2, k2_ds2, [
         {"name": "K7 ctc_lattice_fwd", "route": "cuda", "source": src,
          "replaces": "myrtlespeech_tpu/ops/pallas/ctc_kernel.py:45 "
@@ -2130,6 +2314,7 @@ def phase_ctc_falls(dev):
     emit("ctc_falls", config="synthetic_ctc", batch=32,
          steps=CTC_FALLS_STEPS, losses=losses, seconds=seconds,
          launches=launches)
+    no_stepwise(launches, "synthetic_ctc train")
     if (launches["k7"], launches["k8"], launches["k3"]) != (
             CTC_FALLS_STEPS, CTC_FALLS_STEPS, 0):
         raise AssertionError(f"the CTC steps did not run K7/K8 once each: "
@@ -2145,7 +2330,6 @@ def phase_trained(dev):
         task_config
     from myrtlespeech_tpu_torch.data.dataset.synthetic import SyntheticSpeech
     from myrtlespeech_tpu_torch.decoding.wer import wer
-    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel
     from myrtlespeech_tpu_torch.run.infer import (build_transcriber,
                                                   pad_waveforms)
     from myrtlespeech_tpu_torch.weights import params_from_npz
@@ -2160,7 +2344,7 @@ def phase_trained(dev):
     items = [ds[i] for i in range(len(ds))]
     s_max = max(len(w) for w, _ in items)
     refs, hyps = [], []
-    lstm_kernel.lstm_fwd.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     for i in range(0, len(items), 32):
         chunk = items[i:i + 32]
@@ -2169,7 +2353,8 @@ def phase_trained(dev):
         hyps += tr.transcribe(wav, lens).texts
         refs += [t for _, t in chunk]
     seconds = time.perf_counter() - t0
-    launches = lstm_kernel.lstm_fwd.launches
+    counts = _read_counts()
+    launches = counts["k1"]
     w = wer(refs, hyps)
     emit("trained", config="synthetic_medium_rnnt", utterances=len(refs),
          wer=w, jax_wer=JAX_GREEDY_WER, tolerance=WER_TOLERANCE,
@@ -2177,6 +2362,7 @@ def phase_trained(dev):
          examples=[[r, h] for r, h in zip(refs[:3], hyps[:3])])
     if launches == 0:
         raise AssertionError("the trained path launched K1 no time")
+    no_stepwise(counts, "trained serve")
     if not abs(w - JAX_GREEDY_WER) <= WER_TOLERANCE:
         raise AssertionError(f"WER {w} is not within {WER_TOLERANCE} of the "
                              f"JAX package's {JAX_GREEDY_WER}")
@@ -2218,6 +2404,7 @@ def trained_loss(dev, npz: str):
     if min(launches[k] for k in ("k1", "k2", "k3", "k4")) == 0:
         raise AssertionError(f"the trained loss path skipped a kernel: "
                              f"{launches}")
+    no_stepwise(launches, "trained loss")
     if not abs(mean_loss - JAX_EVAL_LOSS) <= EVAL_LOSS_RTOL * JAX_EVAL_LOSS:
         raise AssertionError(f"eval loss {mean_loss} is not within "
                              f"{EVAL_LOSS_RTOL} of the JAX package's "
@@ -2247,16 +2434,15 @@ def main() -> int:
     k1 = phase_main_path_k1(dev, flagship)
     del flagship
     trained = phase_train(dev)
-    k1["train_launches"] = trained["launches"]["k1"]
-    k1["train_ms"] = trained["ms"]["k1"]
-    k1_train, k234 = phase_train_main_path(dev, trained)
-    k1.update(k1_train)
+    k1["paths"]["train"], k234 = phase_train_main_path(dev, trained)
     del trained
     phase_path_equality(dev)
-    k56 = phase_train_long(dev)
-    k1_ds2, k2_ds2, k78 = phase_train_ctc(dev)
-    k1["ds2"] = k1_ds2
-    k234[0]["ds2"] = k2_ds2
+    k1["paths"]["long"], k234[0]["paths"]["long"], k56 = \
+        phase_train_long(dev)
+    k1["paths"]["ds2"], k234[0]["paths"]["ds2"], k78 = phase_train_ctc(dev)
+    for entry in (k1, k234[0]):
+        entry["max_abs_err"] = max(p["max_abs_err"]
+                                   for p in entry["paths"].values())
     phase_ctc_falls(dev)
     phase_medium_falls(dev)
     phase_trained(dev)

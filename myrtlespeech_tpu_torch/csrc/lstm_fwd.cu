@@ -1,4 +1,11 @@
-// K1: the forward LSTM recurrence, written by hand for Hopper (sm_90a).
+// K1, per-step route: the forward LSTM recurrence, one launch per time step,
+// written by hand for Hopper (sm_90a).
+//
+// The main paths run the persistent K1 (lstm_fwd_persistent.cu), which
+// keeps W_hh in shared memory for the whole call; ops/cuda/lstm_kernel.py's
+// lstm_route sends here only shapes whose grid or shared memory the
+// persistent kernel cannot hold (H over some 1,050 on an H100, B over 128),
+// which no config of the repo has.
 //
 // Replaces myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_lstm_kernel (reached
 // through _lstm_pallas_fwd_call).  For every time step t and every row b:
@@ -31,8 +38,7 @@
 // cs[t-1].  Any B and any H are taken: ragged rows, units and the tail of the
 // reduction are masked here.  The TPU kernel's Mosaic workarounds (the
 // lane-128 mask broadcast, the bias folded into x_proj, the B%8 / H%128 gate)
-// are not carried over.  Keeping each block's W_hh slice resident in shared
-// memory across steps with a persistent kernel is later work.
+// are not carried over.
 //
 // Reduction order: the reduction index k is permuted inside each 16-wide
 // step so that a thread's four k values are contiguous (one 16-byte load of

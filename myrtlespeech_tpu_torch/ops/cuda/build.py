@@ -7,11 +7,13 @@ seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library lands in ``build/kernels/`` at the root of the checkout, named by
-a hash of its source and flags, so an edited source builds again and an
-unchanged one is reused.  Builds run at first use; :func:`build` starts one
-``nvcc`` per source, all at once.  A missing ``nvcc`` or a failed build
-raises: nothing falls back to the plain PyTorch versions.
+A source may include the shared headers beside it (``csrc/*.cuh``).  The
+library lands in ``build/kernels/`` at the root of the checkout, named by a
+hash of its source, the headers and the flags, so an edited source or header
+builds again and an unchanged one is reused.  Builds run at first use;
+:func:`build` starts one ``nvcc`` per source, all at once.  A missing
+``nvcc`` or a failed build raises: nothing falls back to the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -50,8 +52,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    the headers beside it (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

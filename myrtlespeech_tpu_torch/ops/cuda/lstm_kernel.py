@@ -4,21 +4,37 @@ wrappers, their plain versions, and the autograd Function that joins them.
 K1 replaces ``myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_lstm_kernel`` (its
 ``pallas_call`` site is ``_lstm_pallas_fwd_call``), K2 replaces
 ``_bwd_kernel`` there (its ``pallas_call`` site is ``_bwd_pallas_call``).
-The kernels are ``myrtlespeech_tpu_torch/csrc/lstm_fwd.cu`` and
-``csrc/lstm_bwd.cu``: CUDA C++ for ``sm_90a``, built by ``ops/cuda/build.py``
-and bound with ``ctypes``.
+Each has two routes, CUDA C++ for ``sm_90a`` built by ``ops/cuda/build.py``
+and bound with ``ctypes``:
 
-What bounds them on the card: at B=32, H=1024 each step is a (32 x 1024) @
-(1024 x 4096) tensor-core product (K1: ``h @ W_hh``; K2: ``dz @ W_hh^T``)
-plus a read of all of ``W_hh`` (8 MiB in bf16, L2-resident), in a serial
-chain of T steps; over a 5 s flagship batch the products outweigh the bytes
-that must move.  What the design does about it: one launch per step (the
-launch boundary is the grid-wide barrier), each block owning 8 hidden units
-for 32 batch rows, its warps splitting the reduction with ``mma.sync`` (bf16
-in, fp32 accumulate), and the cell arithmetic and length mask fused into the
-same block, so no gate pre-activation (K1) or carried gradient (K2) makes an
-extra trip to device memory.  A persistent kernel with ``W_hh`` resident in
-shared memory is later work.
+- **persistent** (``csrc/lstm_fwd_persistent.cu``,
+  ``csrc/lstm_bwd_persistent.cu``): one cooperative launch per call.  A
+  block owns 8 hidden units for all B <= 128 rows and keeps its slice of
+  ``W_hh`` in shared memory for the whole sequence (the TPU kernel's own
+  design: ``w_hh`` resident in VMEM), its cells' state in registers; the
+  blocks exchange h (K1) or dz (K2) in bf16 through device memory and meet
+  at one grid barrier a step.
+- **stepwise** (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``): one launch a
+  step (the launch boundary is the grid-wide barrier), each block re-reading
+  its ``W_hh`` slice from L2; for shapes whose grid or shared memory the
+  persistent kernels cannot hold (H over some 1,050 on an H100, B over
+  128).  No config of the repo has such a shape.
+
+What bounds them on the card: each step is a (B x H) @ (H x 4H) product
+(K1: ``h @ W_hh``; K2: ``dz @ W_hh^T``) in a serial chain of T steps, and
+every block needs all of the previous step's h or dz.  Over a call the bound
+(inputs and outputs moved once, products at peak) is a fraction of a
+microsecond a step; the chain of barriers and all-to-all exchanges is what
+the card waits on.  Both routes run the products on ``mma.sync`` (bf16 in,
+fp32 accumulate) and fuse the cell arithmetic and length mask, so no gate
+pre-activation (K1) or carried gradient (K2) makes an extra trip to device
+memory.
+
+:func:`lstm_route` chooses the route from (B, H, SM count, shared memory a
+block can ask for), before any launch; :func:`lstm_fwd` and
+:func:`lstm_bwd` dispatch by it, and :func:`lstm_fwd_persistent`,
+:func:`lstm_fwd_stepwise` (and K2's two) take one route whatever the shape.
+A refused launch raises; no route falls back to the other.
 
 :func:`lstm_fwd` and :func:`lstm_bwd` take CUDA tensors to the kernels and
 CPU tensors to :func:`lstm_fwd_reference` and :func:`lstm_bwd_reference`,
@@ -36,6 +52,7 @@ taken.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -120,7 +137,9 @@ def _library(name: str) -> ctypes.CDLL:
 
     lib = load_library(name)
     if not getattr(lib, "_argtypes_set", False):
-        n_ptr, n_int = {"lstm_fwd": (12, 4), "lstm_bwd": (10, 4)}[name]
+        n_ptr, n_int = {"lstm_fwd": (12, 4), "lstm_bwd": (10, 4),
+                        "lstm_fwd_persistent": (13, 3),
+                        "lstm_bwd_persistent": (13, 4)}[name]
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
@@ -128,8 +147,73 @@ def _library(name: str) -> ctypes.CDLL:
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        if name.endswith("_persistent"):
+            smem = getattr(lib, f"{name}_smem_bytes")
+            smem.argtypes = [ctypes.c_int]
+            smem.restype = ctypes.c_ulonglong
         lib._argtypes_set = True
     return lib
+
+
+# The persistent kernels (csrc/lstm_{fwd,bwd}_persistent.cu): a block owns
+# UNITS_PER_BLOCK hidden units for all rows, so a call's grid is ceil(H / 8)
+# blocks, which must all be resident at once (one block an SM is assumed);
+# rows are padded to m16 tiles, at most PERSISTENT_MAX_BATCH of them.
+UNITS_PER_BLOCK = 8
+PERSISTENT_MAX_BATCH = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _smem_stride(k_padded: int) -> int:
+    """``smem_stride`` of ``csrc/lstm_persistent.cuh``: a row of 64 bytes
+    mod 128."""
+    return k_padded + 32 if k_padded % 64 == 0 else k_padded
+
+
+def persistent_smem_bytes(H: int) -> Tuple[int, int]:
+    """Dynamic shared memory of one block of the persistent K1 and K2 at
+    hidden width H: the W_hh slice (K1: 32 rows of H, K2: 8 rows of 4H,
+    bf16, padded) and the k-split partial sums (128 rows of 40 or 8 fp32).
+    The same sums as ``fwd_smem_bytes``/``bwd_smem_bytes`` in the sources."""
+    fwd = 4 * UNITS_PER_BLOCK * _smem_stride(_round_up(H, 32)) * 2 \
+        + 128 * (4 * UNITS_PER_BLOCK + 8) * 4
+    bwd = UNITS_PER_BLOCK * _smem_stride(_round_up(4 * H, 32)) * 2 \
+        + 128 * UNITS_PER_BLOCK * 4
+    return fwd, bwd
+
+
+def lstm_route(B: int, H: int, sm_count: int, smem_per_block: int) -> str:
+    """``"persistent"`` or ``"stepwise"``: which K1/K2 kernels a call of
+    batch B and hidden width H takes on a card with ``sm_count`` SMs and
+    ``smem_per_block`` bytes of shared memory a block can ask for.
+
+    The persistent kernels take B <= 128, a grid of ceil(H / 8) blocks that
+    fits one block an SM, and their shared memory; every other shape goes to
+    the per-step kernels (one launch a step).  K1 and K2 take the same route
+    for a shape.  Decided from the shape alone, before any launch: a
+    persistent launch that the card then refuses raises, it never runs the
+    other route."""
+    fits = max(persistent_smem_bytes(H)) <= smem_per_block
+    if B <= PERSISTENT_MAX_BATCH and -(-H // UNITS_PER_BLOCK) <= sm_count \
+            and fits:
+        return "persistent"
+    return "stepwise"
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int) -> Tuple[int, int]:
+    """(SM count, shared memory a block can ask for) of card ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _route(dev: torch.device, B: int, H: int) -> str:
+    return lstm_route(B, H, *_card_limits(dev.index
+                                          if dev.index is not None
+                                          else torch.cuda.current_device()))
 
 
 def _check(fn: str, name: str, t: torch.Tensor, shape, dtype) -> None:
@@ -161,6 +245,114 @@ def _raise_launch(lib, fn: str, err: int, shape: str) -> None:
                        f"{err} ({msg})")
 
 
+def _fwd_shapes(fn: str, x_proj, valid, w_hh, h0, c0, b):
+    """(T, B, H) of a K1 call on the card; raises on what the kernels do
+    not take."""
+    if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
+        raise ValueError(f"{fn}: x_proj must be (T, B, 4H), got "
+                         f"{tuple(x_proj.shape)}")
+    T, B, H4 = x_proj.shape
+    H = H4 // 4
+    if T == 0 or B == 0 or H == 0:
+        raise ValueError(f"{fn}: empty input {tuple(x_proj.shape)}")
+    _check(fn, "x_proj", x_proj, (T, B, H4), torch.bfloat16)
+    _check(fn, "valid", valid, (T, B), torch.float32)
+    _check(fn, "h0", h0, (B, H), torch.float32)
+    _check(fn, "c0", c0, (B, H), torch.float32)
+    if tuple(w_hh.shape) != (H, H4) or not w_hh.is_floating_point():
+        raise ValueError(f"{fn}: w_hh must be floating (H, 4H) = "
+                         f"{(H, H4)}, got {w_hh.dtype} {tuple(w_hh.shape)}")
+    if b is not None:
+        _check(fn, "b", b, (H4,), torch.float32)
+    return T, B, H
+
+
+def _fwd_outputs(dev, T, B, H):
+    """ys, cs, ifgo, hT, cT, allocated for the kernel to fill."""
+    return (torch.empty((T, B, H), dtype=torch.bfloat16, device=dev),
+            torch.empty((T, B, H), dtype=torch.float32, device=dev),
+            torch.empty((T, B, 4 * H), dtype=torch.bfloat16, device=dev),
+            torch.empty((B, H), dtype=torch.float32, device=dev),
+            torch.empty((B, H), dtype=torch.float32, device=dev))
+
+
+def _launch(lib, fn: str, dev, shape: str, *args) -> None:
+    """``lib.<fn>(*args, stream)`` on ``dev``'s current stream; raises on a
+    launch error."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        _raise_launch(lib, fn, err, shape)
+
+
+def _fwd_stepwise(dev, T, B, H, x_proj, valid, w_hh, h0, c0, b) -> Outputs:
+    """The per-step K1 (``csrc/lstm_fwd.cu``): T launches."""
+    w_t = kernel_layout(w_hh)
+    out = _fwd_outputs(dev, T, B, H)
+    scratch = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+    vec = int(H % 4 == 0 and h0.data_ptr() % 16 == 0)
+    _launch(_library("lstm_fwd"), "lstm_fwd", dev, f"T={T} B={B} H={H}",
+            x_proj.data_ptr(), valid.data_ptr(), w_t.data_ptr(),
+            None if b is None else b.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), *(o.data_ptr() for o in out), scratch.data_ptr(),
+            T, B, H, vec)
+    lstm_fwd_stepwise.launches += T
+    return out
+
+
+def _persistent_scratch(dev, H: int, rows: int, cols: int):
+    """One zeroed allocation for a persistent call: the grid barrier's flags
+    (one 128-byte line for each of the ceil(H / 8) blocks) and after them
+    the bf16 exchange buffer (2, rows, cols).  Returns the tensor (to keep
+    alive) and the two addresses."""
+    n_flags = -(-H // UNITS_PER_BLOCK) * 32
+    buf = torch.zeros((n_flags + rows * cols,), dtype=torch.int32,
+                      device=dev)
+    return buf, buf.data_ptr(), buf.data_ptr() + 4 * n_flags
+
+
+def _tiles(B: int) -> int:
+    """m16 tiles of rows of a persistent call (1, 2, 4 or 8)."""
+    return next(t for t in (1, 2, 4, 8) if 16 * t >= B)
+
+
+def _fwd_persistent(dev, T, B, H, x_proj, valid, w_hh, h0, c0,
+                    b) -> Outputs:
+    """The persistent K1 (``csrc/lstm_fwd_persistent.cu``): one launch."""
+    if B > PERSISTENT_MAX_BATCH:
+        raise ValueError(f"lstm_fwd_persistent: B={B} is over "
+                         f"{PERSISTENT_MAX_BATCH}")
+    w_t = kernel_layout(w_hh)
+    out = _fwd_outputs(dev, T, B, H)
+    # Freed on return, as any scratch: the allocator reuses it only for
+    # work queued after the kernel on this stream.
+    buf, flags, hbuf = _persistent_scratch(dev, H, 16 * _tiles(B),
+                                           _round_up(H, 32))
+    _launch(_library("lstm_fwd_persistent"), "lstm_fwd_persistent", dev,
+            f"T={T} B={B} H={H}", x_proj.data_ptr(), valid.data_ptr(),
+            w_t.data_ptr(), None if b is None else b.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), *(o.data_ptr() for o in out),
+            hbuf, flags, T, B, H)
+    lstm_fwd_persistent.launches += 1
+    return out
+
+
+def _fwd(fn: str, route: Optional[str], x_proj, valid, w_hh, h0, c0, b):
+    """K1 by ``route`` (None: :func:`lstm_route`'s choice) on CUDA tensors,
+    its plain version on CPU tensors; returns the outputs and the grid
+    launches made."""
+    tensors = [x_proj, valid, w_hh, h0, c0] + ([] if b is None else [b])
+    dev = _device_of(fn, tensors)
+    if dev is None:
+        return lstm_fwd_reference(x_proj, valid, w_hh, h0, c0, b), 0
+    T, B, H = _fwd_shapes(fn, x_proj, valid, w_hh, h0, c0, b)
+    if (route or _route(dev, B, H)) == "persistent":
+        return _fwd_persistent(dev, T, B, H, x_proj, valid, w_hh, h0, c0,
+                               b), 1
+    return _fwd_stepwise(dev, T, B, H, x_proj, valid, w_hh, h0, c0, b), T
+
+
 def lstm_fwd(x_proj: torch.Tensor, valid: torch.Tensor, w_hh: torch.Tensor,
              h0: torch.Tensor, c0: torch.Tensor,
              b: Optional[torch.Tensor] = None) -> Outputs:
@@ -168,55 +360,40 @@ def lstm_fwd(x_proj: torch.Tensor, valid: torch.Tensor, w_hh: torch.Tensor,
 
     Same arguments and results as :func:`lstm_fwd_reference`.  On the card
     ``x_proj`` must be bf16 and ``valid``, ``h0``, ``c0`` and ``b`` fp32, all
-    contiguous and on one device.  ``lstm_fwd.launches`` grows by one for
-    each grid launch, i.e. by T per call.
+    contiguous and on one device; :func:`lstm_route` picks the persistent
+    kernel or the per-step one from the shape.  ``lstm_fwd.launches`` grows
+    by one for each grid launch: one per call on the persistent route, T on
+    the per-step route.
     """
-    tensors = [x_proj, valid, w_hh, h0, c0] + ([] if b is None else [b])
-    dev = _device_of("lstm_fwd", tensors)
-    if dev is None:
-        return lstm_fwd_reference(x_proj, valid, w_hh, h0, c0, b)
-    if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
-        raise ValueError(f"lstm_fwd: x_proj must be (T, B, 4H), got "
-                         f"{tuple(x_proj.shape)}")
-    T, B, H4 = x_proj.shape
-    H = H4 // 4
-    if T == 0 or B == 0 or H == 0:
-        raise ValueError(f"lstm_fwd: empty input {tuple(x_proj.shape)}")
-    _check("lstm_fwd", "x_proj", x_proj, (T, B, H4), torch.bfloat16)
-    _check("lstm_fwd", "valid", valid, (T, B), torch.float32)
-    _check("lstm_fwd", "h0", h0, (B, H), torch.float32)
-    _check("lstm_fwd", "c0", c0, (B, H), torch.float32)
-    if tuple(w_hh.shape) != (H, H4) or not w_hh.is_floating_point():
-        raise ValueError(f"lstm_fwd: w_hh must be floating (H, 4H) = "
-                         f"{(H, H4)}, got {w_hh.dtype} {tuple(w_hh.shape)}")
-    if b is not None:
-        _check("lstm_fwd", "b", b, (H4,), torch.float32)
+    out, n = _fwd("lstm_fwd", None, x_proj, valid, w_hh, h0, c0, b)
+    lstm_fwd.launches += n
+    return out
 
-    w_t = kernel_layout(w_hh)
-    ys = torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
-    cs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    ifgo = torch.empty((T, B, H4), dtype=torch.bfloat16, device=dev)
-    hT = torch.empty((B, H), dtype=torch.float32, device=dev)
-    cT = torch.empty((B, H), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    vec = int(H % 4 == 0 and h0.data_ptr() % 16 == 0)
 
-    lib = _library("lstm_fwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_fwd(
-            x_proj.data_ptr(), valid.data_ptr(), w_t.data_ptr(),
-            None if b is None else b.data_ptr(), h0.data_ptr(),
-            c0.data_ptr(), ys.data_ptr(), cs.data_ptr(), ifgo.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(), scratch.data_ptr(), T, B, H, vec,
-            stream)
-    if err != 0:
-        _raise_launch(lib, "lstm_fwd", err, f"T={T} B={B} H={H}")
-    lstm_fwd.launches += T
-    return ys, cs, ifgo, hT, cT
+def lstm_fwd_persistent(x_proj: torch.Tensor, valid: torch.Tensor,
+                        w_hh: torch.Tensor, h0: torch.Tensor,
+                        c0: torch.Tensor,
+                        b: Optional[torch.Tensor] = None) -> Outputs:
+    """K1 through the persistent kernel whatever the shape (a grid the card
+    cannot hold raises); ``lstm_fwd_persistent.launches`` counts its launches
+    from every caller, :func:`lstm_fwd` included."""
+    return _fwd("lstm_fwd_persistent", "persistent", x_proj, valid, w_hh,
+                h0, c0, b)[0]
+
+
+def lstm_fwd_stepwise(x_proj: torch.Tensor, valid: torch.Tensor,
+                      w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                      b: Optional[torch.Tensor] = None) -> Outputs:
+    """K1 through the per-step kernel whatever the shape;
+    ``lstm_fwd_stepwise.launches`` counts its launches (T a call) from every
+    caller, :func:`lstm_fwd` included."""
+    return _fwd("lstm_fwd_stepwise", "stepwise", x_proj, valid, w_hh, h0,
+                c0, b)[0]
 
 
 lstm_fwd.launches = 0
+lstm_fwd_persistent.launches = 0
+lstm_fwd_stepwise.launches = 0
 
 
 BwdOutputs = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
@@ -270,6 +447,84 @@ def lstm_bwd_reference(valid: torch.Tensor, w_hh: torch.Tensor,
     return dz, dh0, dc
 
 
+def _bwd_shapes(fn: str, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT):
+    """(T, B, H) of a K2 call on the card; raises on what the kernels do
+    not take."""
+    if ifgo.dim() != 3 or ifgo.shape[-1] % 4:
+        raise ValueError(f"{fn}: ifgo must be (T, B, 4H), got "
+                         f"{tuple(ifgo.shape)}")
+    T, B, H4 = ifgo.shape
+    H = H4 // 4
+    if T == 0 or B == 0 or H == 0:
+        raise ValueError(f"{fn}: empty input {tuple(ifgo.shape)}")
+    _check(fn, "valid", valid, (T, B), torch.float32)
+    _check(fn, "c0", c0, (B, H), torch.float32)
+    _check(fn, "cs", cs, (T, B, H), torch.float32)
+    _check(fn, "ifgo", ifgo, (T, B, H4), torch.bfloat16)
+    _check(fn, "dys", dys, (T, B, H), torch.bfloat16)
+    _check(fn, "dhT", dhT, (B, H), torch.float32)
+    _check(fn, "dcT", dcT, (B, H), torch.float32)
+    if tuple(w_hh.shape) != (H, H4) or not w_hh.is_floating_point():
+        raise ValueError(f"{fn}: w_hh must be floating (H, 4H) = "
+                         f"{(H, H4)}, got {w_hh.dtype} {tuple(w_hh.shape)}")
+    return T, B, H
+
+
+def _bwd_stepwise(dev, T, B, H, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
+                  need_dh0) -> BwdOutputs:
+    """The per-step K2 (``csrc/lstm_bwd.cu``): T launches, and one more for
+    dh0 with ``need_dh0``."""
+    w = kernel_layout(w_hh, transpose=False)
+    dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dh = dhT.clone()
+    dc = dcT.clone()
+    dzb = torch.empty((2, B, 4 * H), dtype=torch.bfloat16, device=dev)
+    _launch(_library("lstm_bwd"), "lstm_bwd", dev, f"T={T} B={B} H={H}",
+            valid.data_ptr(), w.data_ptr(), c0.data_ptr(), cs.data_ptr(),
+            ifgo.data_ptr(), dys.data_ptr(), dz.data_ptr(), dh.data_ptr(),
+            dc.data_ptr(), dzb.data_ptr(), T, B, H, int(need_dh0))
+    lstm_bwd_stepwise.launches += T + int(need_dh0)
+    return dz, (dh if need_dh0 else None), dc
+
+
+def _bwd_persistent(dev, T, B, H, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
+                    need_dh0) -> BwdOutputs:
+    """The persistent K2 (``csrc/lstm_bwd_persistent.cu``): one launch,
+    dh0 included."""
+    if B > PERSISTENT_MAX_BATCH:
+        raise ValueError(f"lstm_bwd_persistent: B={B} is over "
+                         f"{PERSISTENT_MAX_BATCH}")
+    w = kernel_layout(w_hh, transpose=False)
+    dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    buf, flags, dzb = _persistent_scratch(dev, H, 16 * _tiles(B),
+                                          _round_up(4 * H, 32))
+    _launch(_library("lstm_bwd_persistent"), "lstm_bwd_persistent", dev,
+            f"T={T} B={B} H={H}", valid.data_ptr(), w.data_ptr(),
+            c0.data_ptr(), cs.data_ptr(), ifgo.data_ptr(), dys.data_ptr(),
+            dhT.data_ptr(), dcT.data_ptr(), dz.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), dzb, flags, T, B, H,
+            int(need_dh0))
+    lstm_bwd_persistent.launches += 1
+    return dz, (dh0 if need_dh0 else None), dc0
+
+
+def _bwd(fn: str, route: Optional[str], valid, w_hh, c0, cs, ifgo, dys, dhT,
+         dcT, need_dh0):
+    """K2 by ``route`` (None: :func:`lstm_route`'s choice) on CUDA tensors,
+    its plain version on CPU tensors; returns the outputs and the grid
+    launches made."""
+    args = (valid, w_hh, c0, cs, ifgo, dys, dhT, dcT)
+    dev = _device_of(fn, list(args))
+    if dev is None:
+        return lstm_bwd_reference(*args, need_dh0), 0
+    T, B, H = _bwd_shapes(fn, *args)
+    if (route or _route(dev, B, H)) == "persistent":
+        return _bwd_persistent(dev, T, B, H, *args, need_dh0), 1
+    return _bwd_stepwise(dev, T, B, H, *args, need_dh0), T + int(need_dh0)
+
+
 def lstm_bwd(valid: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
              cs: torch.Tensor, ifgo: torch.Tensor, dys: torch.Tensor,
              dhT: torch.Tensor, dcT: torch.Tensor,
@@ -278,53 +533,44 @@ def lstm_bwd(valid: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
 
     Same arguments and results as :func:`lstm_bwd_reference`.  On the card
     ``ifgo`` and ``dys`` must be bf16 and ``valid``, ``c0``, ``cs``, ``dhT``
-    and ``dcT`` fp32, all contiguous and on one device.
-    ``lstm_bwd.launches`` grows by one for each grid launch: T per call, and
-    one more with ``need_dh0``.
+    and ``dcT`` fp32, all contiguous and on one device; :func:`lstm_route`
+    picks the persistent kernel or the per-step one from the shape.
+    ``lstm_bwd.launches`` grows by one for each grid launch: one per call
+    on the persistent route (dh0 included); T, and one more with
+    ``need_dh0``, on the per-step route.
     """
-    tensors = [valid, w_hh, c0, cs, ifgo, dys, dhT, dcT]
-    dev = _device_of("lstm_bwd", tensors)
-    if dev is None:
-        return lstm_bwd_reference(valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
-                                  need_dh0)
-    if ifgo.dim() != 3 or ifgo.shape[-1] % 4:
-        raise ValueError(f"lstm_bwd: ifgo must be (T, B, 4H), got "
-                         f"{tuple(ifgo.shape)}")
-    T, B, H4 = ifgo.shape
-    H = H4 // 4
-    if T == 0 or B == 0 or H == 0:
-        raise ValueError(f"lstm_bwd: empty input {tuple(ifgo.shape)}")
-    _check("lstm_bwd", "valid", valid, (T, B), torch.float32)
-    _check("lstm_bwd", "c0", c0, (B, H), torch.float32)
-    _check("lstm_bwd", "cs", cs, (T, B, H), torch.float32)
-    _check("lstm_bwd", "ifgo", ifgo, (T, B, H4), torch.bfloat16)
-    _check("lstm_bwd", "dys", dys, (T, B, H), torch.bfloat16)
-    _check("lstm_bwd", "dhT", dhT, (B, H), torch.float32)
-    _check("lstm_bwd", "dcT", dcT, (B, H), torch.float32)
-    if tuple(w_hh.shape) != (H, H4) or not w_hh.is_floating_point():
-        raise ValueError(f"lstm_bwd: w_hh must be floating (H, 4H) = "
-                         f"{(H, H4)}, got {w_hh.dtype} {tuple(w_hh.shape)}")
+    out, n = _bwd("lstm_bwd", None, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
+                  need_dh0)
+    lstm_bwd.launches += n
+    return out
 
-    w = kernel_layout(w_hh, transpose=False)
-    dz = torch.empty((T, B, H4), dtype=torch.float32, device=dev)
-    dh = dhT.clone()
-    dc = dcT.clone()
-    dzb = torch.empty((2, B, H4), dtype=torch.bfloat16, device=dev)
 
-    lib = _library("lstm_bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_bwd(
-            valid.data_ptr(), w.data_ptr(), c0.data_ptr(), cs.data_ptr(),
-            ifgo.data_ptr(), dys.data_ptr(), dz.data_ptr(), dh.data_ptr(),
-            dc.data_ptr(), dzb.data_ptr(), T, B, H, int(need_dh0), stream)
-    if err != 0:
-        _raise_launch(lib, "lstm_bwd", err, f"T={T} B={B} H={H}")
-    lstm_bwd.launches += T + int(need_dh0)
-    return dz, (dh if need_dh0 else None), dc
+def lstm_bwd_persistent(valid: torch.Tensor, w_hh: torch.Tensor,
+                        c0: torch.Tensor, cs: torch.Tensor,
+                        ifgo: torch.Tensor, dys: torch.Tensor,
+                        dhT: torch.Tensor, dcT: torch.Tensor,
+                        need_dh0: bool = True) -> BwdOutputs:
+    """K2 through the persistent kernel whatever the shape (a grid the card
+    cannot hold raises); ``lstm_bwd_persistent.launches`` counts its
+    launches from every caller, :func:`lstm_bwd` included."""
+    return _bwd("lstm_bwd_persistent", "persistent", valid, w_hh, c0, cs,
+                ifgo, dys, dhT, dcT, need_dh0)[0]
+
+
+def lstm_bwd_stepwise(valid: torch.Tensor, w_hh: torch.Tensor,
+                      c0: torch.Tensor, cs: torch.Tensor, ifgo: torch.Tensor,
+                      dys: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
+                      need_dh0: bool = True) -> BwdOutputs:
+    """K2 through the per-step kernel whatever the shape;
+    ``lstm_bwd_stepwise.launches`` counts its launches from every caller,
+    :func:`lstm_bwd` included."""
+    return _bwd("lstm_bwd_stepwise", "stepwise", valid, w_hh, c0, cs, ifgo,
+                dys, dhT, dcT, need_dh0)[0]
 
 
 lstm_bwd.launches = 0
+lstm_bwd_persistent.launches = 0
+lstm_bwd_stepwise.launches = 0
 
 
 def _product_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -55,10 +55,12 @@ def test_k1_matches_plain_version(T, B, H):
     dev = _card()
     args = _k1_inputs(T, B, H, seed=5, dev=dev)
     b = torch.linspace(-0.5, 0.5, 4 * H, device=dev)
-    before = port_k1.lstm_fwd.launches
+    before = (port_k1.lstm_fwd.launches, port_k1.lstm_fwd_stepwise.launches)
     got = port_k1.lstm_fwd(*args, b)
     torch.cuda.synchronize()
-    assert port_k1.lstm_fwd.launches == before + T
+    # Every shape here takes the persistent route: one launch a call.
+    assert (port_k1.lstm_fwd.launches,
+            port_k1.lstm_fwd_stepwise.launches) == (before[0] + 1, before[1])
     want = port_k1.lstm_fwd_reference(*args, b)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -85,7 +87,7 @@ def test_lstm_scan_on_the_card_matches_the_cpu(reverse):
     ys_g, st_g = port_rnn.lstm_scan(x.to(dev), lens.to(dev), w_ih.to(dev),
                                     w_hh.to(dev), b.to(dev), reverse=reverse)
     torch.cuda.synchronize()
-    assert port_k1.lstm_fwd.launches == before + T
+    assert port_k1.lstm_fwd.launches == before + 1
     # x_proj is a bf16 product on both devices, rounded apart by up to a
     # bf16 step, which reaches the fp32 state too: BF16_TOL throughout.
     for g, c in ((ys_g, ys_c), (st_g.h, st_c.h), (st_g.c, st_c.c)):
@@ -115,11 +117,13 @@ def test_k2_matches_plain_version(T, B, H, need_dh0):
     dys, dhT, dcT = (torch.from_numpy(rng.standard_normal(s).astype(
         np.float32)).to(dev) for s in ((T, B, H), (B, H), (B, H)))
     dys = dys.to(torch.bfloat16)
-    before = port_k1.lstm_bwd.launches
+    before = (port_k1.lstm_bwd.launches, port_k1.lstm_bwd_stepwise.launches)
     got = port_k1.lstm_bwd(valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
                            need_dh0)
     torch.cuda.synchronize()
-    assert port_k1.lstm_bwd.launches == before + T + int(need_dh0)
+    # The persistent route: one launch a call, dh0 included.
+    assert (port_k1.lstm_bwd.launches,
+            port_k1.lstm_bwd_stepwise.launches) == (before[0] + 1, before[1])
     want = port_k1.lstm_bwd_reference(valid, w_hh, c0, cs, ifgo, dys, dhT,
                                       dcT, need_dh0)
     for name, g, w in zip(("dz", "dh0", "dc0"), got, want):
@@ -131,6 +135,135 @@ def test_k2_matches_plain_version(T, B, H, need_dh0):
         # taken in another order can round one element a bf16 step apart
         # and carry it to the next step: 1e-2 of the largest magnitude.
         _close_to_scale(g, w, 1e-2, name)
+
+
+# K1 and K2 over T >= 64 ragged steps, where a race on the exchange buffer,
+# the grid barrier or a stale L1 line would show.  One bf16 step of h or dz
+# can feed back through up to 96 steps: bf16 outputs within 2^-5 and the
+# fp32 state within 4e-3 (K1), each K2 output within 2e-3 of its largest
+# magnitude, as ``chip_smoke.py``'s K1_TOL and K2_TOL.
+LONG_BF16_TOL, LONG_FP32_TOL, LONG_K2_TOL = 2.0 ** -5, 4e-3, 2e-3
+
+ROUTES = {"persistent": (port_k1.lstm_fwd_persistent,
+                         port_k1.lstm_bwd_persistent),
+          "stepwise": (port_k1.lstm_fwd_stepwise, port_k1.lstm_bwd_stepwise)}
+
+
+def _k2_cotangents(T, B, H, seed, dev):
+    rng = np.random.default_rng(seed)
+    dys, dhT, dcT = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for s in ((T, B, H), (B, H), (B, H)))
+    return dys.to(torch.bfloat16), dhT, dcT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("T,B,H", [(80, 128, 1024), (64, 32, 800),
+                                   (70, 3, 320)])
+def test_k1_k2_routes_match_plain_versions_over_long_sequences(route, T, B,
+                                                               H):
+    dev = _card()
+    fwd, bwd = ROUTES[route]
+    args = _k1_inputs(T, B, H, seed=11, dev=dev)
+    # W_hh of standard deviation 1/sqrt(H), as an initialised layer's and
+    # chip_smoke.py's: at 0.1 the state of a wide layer saturates, and a
+    # bf16 step of h then moves c by more than any tolerance of the order.
+    args[2] = args[2] * (10.0 / np.sqrt(H))
+    valid, w_hh, c0 = args[1], args[2], args[4]
+    b = torch.linspace(-0.5, 0.5, 4 * H, device=dev)
+    before = (fwd.launches, bwd.launches)
+    got = fwd(*args, b)
+    torch.cuda.synchronize()
+    want = port_k1.lstm_fwd_reference(*args, b)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        tol = LONG_BF16_TOL if g.dtype == torch.bfloat16 else LONG_FP32_TOL
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+    _, cs, ifgo, _, _ = want
+    cot = _k2_cotangents(T, B, H, seed=12, dev=dev)
+    got = bwd(valid, w_hh, c0, cs, ifgo, *cot, True)
+    torch.cuda.synchronize()
+    want = port_k1.lstm_bwd_reference(valid, w_hh, c0, cs, ifgo, *cot, True)
+    for name, g, w in zip(("dz", "dh0", "dc0"), got, want):
+        _close_to_scale(g, w, LONG_K2_TOL, name)
+    per_call = (1, 1) if route == "persistent" else (T, T + 1)
+    assert (fwd.launches, bwd.launches) == (before[0] + per_call[0],
+                                            before[1] + per_call[1])
+
+
+@pytest.mark.cuda
+def test_persistent_k1_k2_are_deterministic():
+    # The k-split partial sums meet in a fixed order, so two calls on the
+    # same inputs must be bit-equal; a difference is a race.
+    dev = _card()
+    T, B, H = 96, 128, 1024
+    args = _k1_inputs(T, B, H, seed=13, dev=dev)
+    valid, w_hh, c0 = args[1], args[2], args[4]
+    runs = [port_k1.lstm_fwd_persistent(*args) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    _, cs, ifgo, _, _ = runs[0]
+    cot = _k2_cotangents(T, B, H, seed=14, dev=dev)
+    runs = [port_k1.lstm_bwd_persistent(valid, w_hh, c0, cs, ifgo, *cot,
+                                        True) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(3, 2, 2048), (4, 130, 64)])
+def test_oversize_shapes_dispatch_to_the_per_step_kernels(T, B, H):
+    dev = _card()
+    assert port_k1._route(dev, B, H) == "stepwise"
+    args = _k1_inputs(T, B, H, seed=15, dev=dev)
+    valid, w_hh, c0 = args[1], args[2], args[4]
+    counters = [port_k1.lstm_fwd, port_k1.lstm_fwd_stepwise,
+                port_k1.lstm_fwd_persistent, port_k1.lstm_bwd,
+                port_k1.lstm_bwd_stepwise, port_k1.lstm_bwd_persistent]
+    before = [fn.launches for fn in counters]
+    got = port_k1.lstm_fwd(*args)
+    _, cs, ifgo, _, _ = got
+    cot = _k2_cotangents(T, B, H, seed=16, dev=dev)
+    got_b = port_k1.lstm_bwd(valid, w_hh, c0, cs, ifgo, *cot, True)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [
+        T, T, 0, T + 1, T + 1, 0]
+    for g, w in zip(got, port_k1.lstm_fwd_reference(*args)):
+        tol = BF16_TOL if g.dtype == torch.bfloat16 else FP32_TOL
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    want_b = port_k1.lstm_bwd_reference(valid, w_hh, c0, cs, ifgo, *cot,
+                                        True)
+    for name, g, w in zip(("dz", "dh0", "dc0"), got_b, want_b):
+        _close_to_scale(g, w, 1e-2, name)
+
+
+@pytest.mark.cuda
+def test_every_config_shape_takes_the_persistent_route_on_this_card():
+    dev = _card()
+    for H in (1024, 800, 320, 256, 128, 64):
+        for B in (1, 32, 128):
+            assert port_k1._route(dev, B, H) == "persistent", (B, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 20, 320, 800, 1024])
+def test_persistent_shared_memory_matches_the_sources(H):
+    _card()
+    got = tuple(getattr(port_k1._library(n), f"{n}_smem_bytes")(H)
+                for n in ("lstm_fwd_persistent", "lstm_bwd_persistent"))
+    assert got == port_k1.persistent_smem_bytes(H)
+
+
+@pytest.mark.cuda
+def test_a_persistent_grid_the_card_cannot_hold_raises():
+    # 2048 / 8 = 256 blocks of one an SM: the co-residency check refuses the
+    # launch, and nothing runs another way.
+    dev = _card()
+    args = _k1_inputs(2, 2, 2048, seed=17, dev=dev)
+    before = port_k1.lstm_fwd_persistent.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        port_k1.lstm_fwd_persistent(*args)
+    assert port_k1.lstm_fwd_persistent.launches == before
 
 
 def _lattice_inputs(B, T, U1, seed, dev):
@@ -199,8 +332,8 @@ def test_lstm_scan_gradients_on_the_card_match_the_cpu(reverse):
     before = (port_k1.lstm_fwd.launches, port_k1.lstm_bwd.launches)
     card = grads(dev)
     torch.cuda.synchronize()
-    assert port_k1.lstm_fwd.launches == before[0] + T
-    assert port_k1.lstm_bwd.launches == before[1] + T
+    assert port_k1.lstm_fwd.launches == before[0] + 1
+    assert port_k1.lstm_bwd.launches == before[1] + 1
     # bf16 products on both devices, rounded apart by up to a bf16 step
     # each: 2e-2 of each gradient's largest magnitude.
     for name, g, c in zip(("x", "w_ih", "w_hh", "b"), card, cpu):
