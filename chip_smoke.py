@@ -30,7 +30,10 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              plain versions at the flagship's lattice (B=32, T'=251, U+1=65),
              on the first 8 rows of the long step's lattice (T'=836,
              U+1=215) and at V=1024: errors, the kernels' and the plain
-             versions' times beside the bounds.
+             versions' times beside the bounds, K6's split plan and scratch
+             bytes at each shape; first a ``k6_attrs`` line (K6's registers,
+             local, shared bytes and blocks an SM for each activation), which
+             fails if the kernel spills to local memory.
 7. flagship  ``rnn_t_en`` at full width with seeded random weights transcribes
              B=32 x 5 s of seeded audio through ``build_transcriber``: one
              warm-up and three timed runs, K1's launches on that path, a
@@ -192,9 +195,10 @@ PEAK_BYTES = 3.35e12
 # bf16 as the plain version does, but a sum taken in another order can put
 # one element on the neighbouring bf16 value (2^-8 of it) before the
 # products, and dfp and dgp come back in fp's dtype, bf16, where one
-# rounding step is up to 2^-7 of the largest element.  K6 read at most
-# 6.8e-3 of each gradient's largest magnitude (dfp, on the long step's
-# call): 2e-2 leaves 3x room.
+# rounding step is up to 2^-7 of the largest element.  The K6 of
+# csrc/joint_tail_bwd.cu read at most 4.2e-3 of each gradient's largest
+# magnitude on an H100 (dgp at long_8_rows; 3.4e-3 on the long step's own
+# call; PERF.md), the kernel it replaced 6.8e-3: 2e-2 leaves some 5x room.
 K5_TOL = 1e-5
 K6_TOL = 2e-2
 K56_OUTPUTS = ("lp_blank", "lp_emit", "dfp", "dgp", "dw2", "db2")
@@ -817,9 +821,22 @@ def phase_k56(dev):
     lattice, on the long lattice's first 8 rows (where the plain version's
     (B, T', U+1, K) tensors fit) and at a vocabulary of 1,024 (32 chunks of
     the online log-sum-exp).  Times are CUDA-event medians of the wrapper
-    calls (operand layout and, for K6, the sums of the partials included)."""
+    calls (operand layout and, for K6, the sums of its slabs included).
+    First K6's kernel attributes for each activation, at K=512 and V=29
+    (one vocabulary chunk, the main path) and V=1024 (its chunked form): it
+    must not spill."""
     from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
 
+    attrs = {act: k.k6_attributes(dev, act) for act in k.ACTS}
+    attrs.update({f"{act}_V1024": k.k6_attributes(dev, act, 1024)
+                  for act in k.ACTS})
+    emit("k6_attrs", K=512, **attrs)
+    spills = {a: v["localSizeBytes"] for a, v in attrs.items()
+              if v["localSizeBytes"] > 0}
+    if spills:
+        raise AssertionError(f"K6 spills to local memory: {spills} bytes a "
+                             "thread")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = {"5s": (32, 251, 65, 512, 29),
               "long_8_rows": (8, 836, 215, 512, 29),
               "V1024": (4, 64, 33, 512, 1024)}
@@ -843,8 +860,12 @@ def phase_k56(dev):
         (f5, n5), (f6, n6) = k56_work(B, T, U1, K, V)
         b5, by5 = bound(f5, n5)
         b6, by6 = bound(f6, n6)
+        Vp = -(-V // k.V_TILE) * k.V_TILE
+        n_split, t_tile = k.k6_plan(B, T, U1, K, sms,
+                                    attrs["relu"]["blocksPerSM"], Vp)
         emit("k56", shape=label, B=B, T=T, U1=U1, K=K, V=V, max_abs_err=errs,
-             err_over_magnitude=rel,
+             err_over_magnitude=rel, k6_n_split=n_split, k6_t_tile=t_tile,
+             k6_scratch_bytes=k.k6_scratch_bytes(B, U1, K, Vp, n_split),
              tolerance={"k5": K5_TOL, "k6": K6_TOL}, **times,
              library_ms=None, k5_bound_ms=b5, k5_bound_by=by5,
              k6_bound_ms=b6, k6_bound_by=by6)
@@ -1770,6 +1791,35 @@ def _plain_in_rows(ref, args, n_tensor_args: int, rows: int = 8):
     return tuple(out)
 
 
+def peaks_around(module, name: str, fn, dev) -> dict:
+    """Peak device memory of one run of ``fn`` before, during and after its
+    call of ``module.name`` (one call), in GB: where the run's peak lies."""
+    real = getattr(module, name)
+    peaks = {}
+
+    def measured(*args, **kwargs):
+        torch.cuda.synchronize()
+        peaks["before_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks["during_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        return out
+
+    measured.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    setattr(module, name, measured)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, real)
+    peaks["after_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return peaks
+
+
 def phase_train_long(dev):
     """rnn_t_en at full width trains on B=128 x 16.7 s with 214 labels:
     the planner sends it to the joint-tail path; K1-K6 launch as
@@ -1849,6 +1899,8 @@ def phase_train_long(dev):
     torch.cuda.synchronize()
     split.append(time.perf_counter())
     del loss
+    k6_peaks = peaks_around(joint_kernel, "joint_tail_bwd",
+                            lambda: step(state, batch), dev)
 
     traced = LONG_LAUNCHES
     traced_wall_ms, spans, kernel_spans, retries = trace_step(
@@ -1893,6 +1945,11 @@ def phase_train_long(dev):
                                   w2.element_size())
     b5, by5 = bound(f5, n5)
     b6, by6 = bound(f6, n6)
+    Vp = -(-V // joint_kernel.V_TILE) * joint_kernel.V_TILE
+    k6_split, _ = joint_kernel.k6_plan(
+        Bk, Tk, U1k, joint_kernel.MAX_K, torch.cuda.get_device_properties(dev)
+        .multi_processor_count,
+        joint_kernel.k6_attributes(dev, k6_args[8], Vp)["blocksPerSM"], Vp)
     del k5_args, k6_args
     torch.cuda.empty_cache()
 
@@ -1943,7 +2000,8 @@ def phase_train_long(dev):
          forward_ms=1e3 * (split[1] - split[0]),
          backward_ms=1e3 * (split[2] - split[1]),
          optimizer_ms=1e3 * (split[3] - split[2]), peak_memory_gb=peak_gb,
-         traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
+         peak_memory_around_k6=k6_peaks, traced_wall_ms=traced_wall_ms,
+         device_busy_ms=busy,
          device_idle_share=1.0 - busy / traced_wall_ms,
          device_events=len(spans), trace_retries=retries,
          kernel_device_ms=kernel_ms,
@@ -1953,7 +2011,9 @@ def phase_train_long(dev):
          k56_err_over_magnitude=k56_rel,
          k5_plain_device_ms=span_ms(k5_plain),
          k6_plain_device_ms=span_ms(k6_plain), k5_bound_ms=b5,
-         k6_bound_ms=b6,
+         k6_bound_ms=b6, k6_n_split=k6_split,
+         k6_scratch_bytes=joint_kernel.k6_scratch_bytes(
+             Bk, U1k, joint_kernel.MAX_K, Vp, k6_split),
          k3_bound_ms=bound(*k3_work(B, T2, U + 1), peak=PEAK_FP32_FLOPS)[0],
          k4_bound_ms=bound(*k4_work(B, T2, U + 1), peak=PEAK_FP32_FLOPS)[0],
          chunked=chunked)
@@ -1966,7 +2026,8 @@ def phase_train_long(dev):
          "max_abs_err": max(k56_errs["lp_blank"], k56_errs["lp_emit"]),
          "ms": kernel_ms["k5"], "plain_ms": span_ms(k5_plain),
          "bound_ms": b5, "bound_by": by5, "library_ms": None},
-        {"name": "K6 joint_tail_bwd", "route": "cuda", "source": src,
+        {"name": "K6 joint_tail_bwd", "route": "cuda",
+         "source": "myrtlespeech_tpu_torch/csrc/joint_tail_bwd.cu",
          "replaces": "myrtlespeech_tpu/ops/pallas/joint_kernel.py:134 "
                      "(_bwd_kernel, pallas_call in _jt_bwd :336)",
          "launches": traced["k6"],

@@ -3,9 +3,10 @@ wrappers, their plain versions, and the autograd Function that joins them.
 
 K5 replaces ``myrtlespeech_tpu/ops/pallas/joint_kernel.py::_fwd_kernel``
 (its ``pallas_call`` site is in ``_jt_impl``), K6 replaces ``_bwd_kernel``
-there (its ``pallas_call`` site is in ``_jt_bwd``).  Both kernels are in
-``myrtlespeech_tpu_torch/csrc/joint_tail.cu``: CUDA C++ for ``sm_90a``, built
-by ``ops/cuda/build.py`` and bound with ``ctypes``.
+there (its ``pallas_call`` site is in ``_jt_bwd``).  K5 is in
+``myrtlespeech_tpu_torch/csrc/joint_tail.cu``, K6 in ``csrc/joint_tail_bwd.cu``
+(helpers shared through ``csrc/joint_tail.cuh``): CUDA C++ for ``sm_90a``,
+built by ``ops/cuda/build.py`` and bound with ``ctypes``.
 
 With the factored joint (``models/rnn_t.py::RNNTJoint``) the work left for
 each lattice cell after the two projections ``fp (B, T, K)`` and
@@ -23,9 +24,10 @@ V)`` logits exists in device memory, forward or backward.
 
 What bounds them on the card: the tensor-core products (K5 one, K6 three,
 each ``2 * cells * K * V`` operations), against some 0.1-0.2 ms of bytes at
-the 16.7 s batch (B=128, T'=836, U+1=215, K=512, V=29).  The design is in
-the source's head.  :func:`joint_tail_fwd` and :func:`joint_tail_bwd` take
-CUDA tensors to the kernels (bf16 products only) and CPU tensors to
+the 16.7 s batch (B=128, T'=836, U+1=215, K=512, V=29).  The designs are in
+the sources' heads; :func:`k6_plan` chooses how K6 splits each batch row's
+frames among its blocks.  :func:`joint_tail_fwd` and :func:`joint_tail_bwd`
+take CUDA tensors to the kernels (bf16 products only) and CPU tensors to
 :func:`joint_tail_fwd_reference` and :func:`joint_tail_bwd_reference`.
 There is no fallback from a kernel to its plain version.
 """
@@ -33,17 +35,23 @@ There is no fallback from a kernel to its plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 ACTS = ("relu", "hardtanh", "identity")
-K_TILE = 64    # K is zero-padded to a multiple of this (one warp's K slice)
+K_TILE = 64    # K5 zero-pads K to a multiple of this (one warp's K slice)
 V_TILE = 32    # V is padded to a multiple of this (one chunk of logits)
-MAX_K = 512    # at most 8 warps a block, and K6's operands in shared memory
-MAX_U1 = 1024  # K6 keeps a log-sum-exp per (t, u) of its block for V > 32
-T_TILE = 16    # frames per block (one mma row tile); K6's partials per tile
+MAX_K = 512    # at most 8 warps a block; K6 zero-pads K to this
+MAX_U1 = 1024  # the lattice's U+1 the kernels are held to
+T_TILE = 32    # frames of one of K6's t-tiles: two mma row tiles
+# K6's scratch (each split's dgp slab, each block's dW2 and db2) at most.
+K6_SCRATCH_CAP = 0.5e9
+# A split's own work besides its t-tiles (loading W2, writing its dW2 and
+# db2, the first t-tile's plain dgp stores), in t-tiles: an estimate.
+K6_SPLIT_COST = 0.25
 
 
 def joint_tail_supported(act: str, num_hidden_layers: int, dropout: float,
@@ -144,22 +152,97 @@ def joint_tail_bwd_reference(fp: torch.Tensor, gp: torch.Tensor,
             dw2.to(w2.dtype), dlogits.sum((0, 1, 2)).to(b2.dtype))
 
 
-def _library() -> ctypes.CDLL:
+def k6_splits(T: int, n_split: int, t_tile: int = T_TILE
+              ) -> List[Tuple[int, int]]:
+    """The frames ``[t_lo, t_hi)`` of each of a batch row's ``n_split``
+    splits, as K6's blocks compute them: whole t-tiles, their counts apart by
+    at most one, the last cut at T."""
+    n_tiles = -(-T // t_tile)
+    return [(s * n_tiles // n_split * t_tile,
+             min((s + 1) * n_tiles // n_split * t_tile, T))
+            for s in range(n_split)]
+
+
+def k6_scratch_bytes(B: int, U1: int, Kp: int, Vp: int, n_split: int) -> int:
+    """Bytes of K6's fp32 scratch: each split's dgp slab ``(B, n_split,
+    U+1, Kp)`` and each block's dW2 ``(Kp, Vp)`` and db2 ``(Vp,)``."""
+    return 4 * B * n_split * (U1 * Kp + Kp * Vp + Vp)
+
+
+def k6_plan(B: int, T: int, U1: int, Kp: int, sms: int,
+            blocks_per_sm: int = 1, Vp: int = V_TILE) -> Tuple[int, int]:
+    """``(n_split, t_tile)`` for K6: how many blocks share a batch row's
+    frames, and the frames of a t-tile.
+
+    The grid ``(n_split, B)`` runs on ``sms * blocks_per_sm`` block slots.
+    Among the splits that keep the scratch within :data:`K6_SCRATCH_CAP`,
+    it takes one whose grid fills the slots at least once where the
+    batch's t-tiles allow, then the least time by the count of waves times
+    a block's t-tiles (plus :data:`K6_SPLIT_COST`), then the fewest splits.
+    """
+    n_tiles = -(-T // T_TILE)
+    slots = max(1, sms * blocks_per_sm)
+    best = None
+    for n in range(1, n_tiles + 1):
+        if n > 1 and k6_scratch_bytes(B, U1, Kp, Vp, n) > K6_SCRATCH_CAP:
+            break
+        blocks = B * n
+        cost = -(-blocks // slots) * (-(-n_tiles // n) + K6_SPLIT_COST)
+        key = (blocks < slots, cost, n)
+        if best is None or key < best:
+            best = key
+    return best[2], T_TILE
+
+
+def _library(name: str = "joint_tail") -> ctypes.CDLL:
+    """K5's library (``joint_tail``) or K6's (``joint_tail_bwd``)."""
     from myrtlespeech_tpu_torch.ops.cuda.build import load_library
 
-    lib = load_library("joint_tail")
+    lib = load_library(name)
     if not getattr(lib, "_argtypes_set", False):
-        ints = [ctypes.c_int] * 8
-        lib.joint_tail_fwd.argtypes = [ctypes.c_void_p] * 7 + ints \
-            + [ctypes.c_float, ctypes.c_void_p]
-        lib.joint_tail_bwd.argtypes = [ctypes.c_void_p] * 12 + ints \
-            + [ctypes.c_float, ctypes.c_void_p]
-        lib.joint_tail_fwd.restype = ctypes.c_int
-        lib.joint_tail_bwd.restype = ctypes.c_int
-        lib.joint_tail_error_string.argtypes = [ctypes.c_int]
-        lib.joint_tail_error_string.restype = ctypes.c_char_p
+        ints, ptr = ctypes.c_int, ctypes.c_void_p
+        if name == "joint_tail":
+            lib.joint_tail_fwd.argtypes = [ptr] * 7 + [ints] * 8 \
+                + [ctypes.c_float, ptr]
+            lib.joint_tail_fwd.restype = ctypes.c_int
+        else:
+            lib.joint_tail_bwd.argtypes = [ptr] * 11 + [ints] * 8 \
+                + [ctypes.c_float, ints, ptr]
+            lib.joint_tail_bwd.restype = ctypes.c_int
+            lib.joint_tail_bwd_attrs.argtypes = [ints] * 2 + [ptr]
+            lib.joint_tail_bwd_attrs.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        lib.error_string = err
         lib._argtypes_set = True
     return lib
+
+
+K6_ATTRS = ("numRegs", "localSizeBytes", "sharedSizeBytes",
+            "maxThreadsPerBlock", "dynamicSharedBytes", "blocksPerSM")
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_attrs(device: int, act: str, Vp: int) -> Tuple[int, ...]:
+    lib = _library("joint_tail_bwd")
+    out = (ctypes.c_int * len(K6_ATTRS))()
+    with torch.cuda.device(device):
+        err = lib.joint_tail_bwd_attrs(ACTS.index(act), Vp,
+                                       ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"joint_tail_bwd_attrs: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")
+    return tuple(out)
+
+
+def k6_attributes(device, act: str = "relu", Vp: int = V_TILE) -> dict:
+    """K6's kernel for ``act`` on the card: ``cudaFuncGetAttributes``
+    (registers and local bytes a thread, static shared bytes, most threads a
+    block), its dynamic shared bytes at ``Vp`` and the blocks an SM holds
+    there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    dev = torch.device(device)
+    return dict(zip(K6_ATTRS, _k6_attrs(dev.index or 0, act, Vp)))
 
 
 def _on_card(fn: str, tensors) -> bool:
@@ -179,12 +262,13 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _card_operands(fn: str, fp, gp, w2, b2, lab, act, mxu_dtype):
+def _card_operands(fn: str, fp, gp, w2, b2, lab, act, mxu_dtype,
+                   k_tile: int = K_TILE):
     """Checks the card's contract and lays the operands out for the
     kernels, each in a fresh contiguous (so 16-byte aligned) tensor:
-    ``fp``, ``gp`` in bf16 with K zero-padded to ``Kp``; ``W2`` in bf16,
-    zero-padded, as ``(Vp, Kp)`` (the logits' products) and ``(Kp, Vp)``
-    (K6's ``dh``); ``b2`` fp32; ``lab`` int32."""
+    ``fp``, ``gp`` in bf16 with K zero-padded to ``Kp``, a multiple of
+    ``k_tile``; ``W2`` in bf16, zero-padded, as ``(Vp, Kp)``; ``b2`` fp32;
+    ``lab`` int32."""
     if mxu_dtype != "bfloat16":
         raise ValueError(f"{fn}: the card's kernels take bf16 products, "
                          f"got mxu_dtype={mxu_dtype!r}")
@@ -203,7 +287,7 @@ def _card_operands(fn: str, fp, gp, w2, b2, lab, act, mxu_dtype):
         raise ValueError(f"{fn}: (B, T, U+1, K, V) = {(B, T, U1, K, V)} must "
                          f"be non-empty with K <= {MAX_K} and U+1 <= "
                          f"{MAX_U1}")
-    Kp, Vp = _round_up(K, K_TILE), _round_up(V, V_TILE)
+    Kp, Vp = _round_up(K, k_tile), _round_up(V, V_TILE)
     bf = dict(dtype=torch.bfloat16, device=fp.device)
     fp_p = torch.zeros((B, T, Kp), **bf)
     fp_p[..., :K] = fp
@@ -211,12 +295,12 @@ def _card_operands(fn: str, fp, gp, w2, b2, lab, act, mxu_dtype):
     gp_p[..., :K] = gp
     w2v = torch.zeros((Vp, Kp), **bf)
     w2v[:V, :K] = w2.t()
-    return (fp_p, gp_p, w2v, w2v.t().contiguous(), b2.float().contiguous(),
+    return (fp_p, gp_p, w2v, b2.float().contiguous(),
             lab.to(torch.int32).contiguous(), (B, T, U1, K, V, Kp, Vp))
 
 
 def _raise_launch(lib, fn: str, err: int, dims) -> None:
-    msg = lib.joint_tail_error_string(err).decode()
+    msg = lib.error_string(err).decode()
     raise RuntimeError(f"{fn}: kernel launch failed at (B, T, U+1, K, V) = "
                        f"{dims[:5]}: CUDA error {err} ({msg})")
 
@@ -235,7 +319,7 @@ def joint_tail_fwd(fp: torch.Tensor, gp: torch.Tensor, w2: torch.Tensor,
     if not _on_card("joint_tail_fwd", [fp, gp, w2, b2, lab]):
         return joint_tail_fwd_reference(fp, gp, w2, b2, lab, blank, act,
                                         clip, mxu_dtype)
-    fp_p, gp_p, w2v, _, b2_f, lab_i, dims = _card_operands(
+    fp_p, gp_p, w2v, b2_f, lab_i, dims = _card_operands(
         "joint_tail_fwd", fp, gp, w2, b2, lab, act, mxu_dtype)
     B, T, U1, K, V, Kp, Vp = dims
     dev = fp.device
@@ -264,17 +348,20 @@ def joint_tail_bwd(fp: torch.Tensor, gp: torch.Tensor, w2: torch.Tensor,
     """K6 on CUDA tensors, its plain version on CPU tensors.
 
     Same arguments and results as :func:`joint_tail_bwd_reference`, with
-    the contract of :func:`joint_tail_fwd`.  The kernel writes ``dfp``
-    directly and, per block of 16 frames, partial sums of ``dgp``, ``dW2``
-    and ``db2`` (no atomics, so the result does not vary from run to run),
-    which are summed here.  ``joint_tail_bwd.launches`` grows by one per
-    call.
+    the contract of :func:`joint_tail_fwd`; K is zero-padded to 512 for the
+    kernel (its 8 warps own 64 columns each).  The kernel's grid is
+    ``(n_split, B)`` from :func:`k6_plan` for this card's SM count and the
+    kernel's occupancy: each block walks its split of a row's frames
+    (:func:`k6_splits`) and writes ``dfp`` directly, its split's slab of
+    ``dgp`` and its own ``dW2`` and ``db2``; the slabs are summed here in a
+    fixed order (no atomics, so two calls give the same bits).
+    ``joint_tail_bwd.launches`` grows by one per call.
     """
     if not _on_card("joint_tail_bwd", [fp, gp, w2, b2, lab, gb, ge]):
         return joint_tail_bwd_reference(fp, gp, w2, b2, lab, gb, ge, blank,
                                         act, clip, mxu_dtype)
-    fp_p, gp_p, w2v, w2k, b2_f, lab_i, dims = _card_operands(
-        "joint_tail_bwd", fp, gp, w2, b2, lab, act, mxu_dtype)
+    fp_p, gp_p, w2v, b2_f, lab_i, dims = _card_operands(
+        "joint_tail_bwd", fp, gp, w2, b2, lab, act, mxu_dtype, MAX_K)
     B, T, U1, K, V, Kp, Vp = dims
     for name, t in (("gb", gb), ("ge", ge)):
         if tuple(t.shape) != (B, T, U1):
@@ -282,27 +369,28 @@ def joint_tail_bwd(fp: torch.Tensor, gp: torch.Tensor, w2: torch.Tensor,
                              f"{tuple(t.shape)}, expected {(B, T, U1)}")
     gb_f, ge_f = gb.float().contiguous(), ge.float().contiguous()
     dev = fp.device
-    n_tt = -(-T // T_TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occupancy = k6_attributes(dev, act, Vp)["blocksPerSM"]
+    n_split, _ = k6_plan(B, T, U1, Kp, sms, occupancy, Vp)
     f32 = dict(dtype=torch.float32, device=dev)
     dfp = torch.empty((B, T, Kp), **f32)
-    dgp_part = torch.empty((B, n_tt, U1, Kp), **f32)
-    dw2_part = torch.empty((B * n_tt, Kp, Vp), **f32)
-    db2_part = torch.empty((B * n_tt, Vp), **f32)
-    lib = _library()
+    dgp_s = torch.empty((B, n_split, U1, Kp), **f32)
+    dw2_s = torch.empty((B * n_split, Kp, Vp), **f32)
+    db2_s = torch.empty((B * n_split, Vp), **f32)
+    lib = _library("joint_tail_bwd")
     with torch.cuda.device(dev):
         err = lib.joint_tail_bwd(
-            fp_p.data_ptr(), gp_p.data_ptr(), w2v.data_ptr(), w2k.data_ptr(),
-            b2_f.data_ptr(), lab_i.data_ptr(), gb_f.data_ptr(),
-            ge_f.data_ptr(), dfp.data_ptr(), dgp_part.data_ptr(),
-            dw2_part.data_ptr(), db2_part.data_ptr(), B, T, U1, Kp, V, Vp,
-            blank, ACTS.index(act), clip,
-            torch.cuda.current_stream(dev).cuda_stream)
+            fp_p.data_ptr(), gp_p.data_ptr(), w2v.data_ptr(), b2_f.data_ptr(),
+            lab_i.data_ptr(), gb_f.data_ptr(), ge_f.data_ptr(),
+            dfp.data_ptr(), dgp_s.data_ptr(), dw2_s.data_ptr(),
+            db2_s.data_ptr(), B, T, U1, Kp, V, Vp, blank, ACTS.index(act),
+            clip, n_split, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         _raise_launch(lib, "joint_tail_bwd", err, dims)
     joint_tail_bwd.launches += 1
-    return (dfp[..., :K].to(fp.dtype), dgp_part.sum(1)[..., :K].to(gp.dtype),
-            dw2_part.sum(0)[:K, :V].to(w2.dtype),
-            db2_part.sum(0)[:V].to(b2.dtype))
+    return (dfp[..., :K].to(fp.dtype), dgp_s.sum(1)[..., :K].to(gp.dtype),
+            dw2_s.sum(0)[:K, :V].to(w2.dtype),
+            db2_s.sum(0)[:V].to(b2.dtype))
 
 
 joint_tail_bwd.launches = 0

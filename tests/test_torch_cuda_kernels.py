@@ -347,7 +347,7 @@ def test_lstm_scan_gradients_on_the_card_match_the_cpu(reverse):
 # one element on the neighbouring bf16 value (2^-8 of it) before the
 # products, and dfp and dgp come back in bf16, where one rounding step is up
 # to 2^-7 of the largest element: 2e-2 of each gradient's largest magnitude
-# (6.8e-3 read on an H100).
+# (at most 4.2e-3 read on an H100).
 K5_TOL = 1e-5
 K6_TOL = 2e-2
 
@@ -367,7 +367,12 @@ def _joint_tail_inputs(B, T, U1, K, V, seed, dev):
 @pytest.mark.parametrize("B,T,U1,K,V,act", [
     (2, 5, 3, 16, 11, "relu"), (3, 37, 19, 512, 29, "relu"),
     (2, 20, 9, 200, 29, "hardtanh"), (2, 18, 10, 64, 29, "identity"),
-    (2, 17, 9, 512, 130, "relu"), (2, 9, 5, 512, 1024, "relu")])
+    (2, 17, 9, 512, 130, "relu"), (2, 9, 5, 512, 1024, "relu"),
+    # T not a multiple of K6's 32-frame t-tile, U+1 over one group of 32 u.
+    (3, 101, 67, 512, 29, "relu"),
+    # B small enough that k6_plan gives each row several splits.
+    (2, 300, 9, 512, 29, "relu"), (2, 70, 40, 512, 29, "hardtanh"),
+    (2, 70, 35, 192, 40, "identity")])
 def test_k5_k6_match_plain_versions(B, T, U1, K, V, act):
     dev = _card()
     fp, gp, w2, b2, lab, gb, ge = _joint_tail_inputs(B, T, U1, K, V, 5, dev)
@@ -384,6 +389,36 @@ def test_k5_k6_match_plain_versions(B, T, U1, K, V, act):
     for name, got, want in zip(("dfp", "dgp", "dw2", "db2"), bwd, bwd_ref):
         assert got.shape == want.shape and got.dtype == want.dtype, name
         _close_to_scale(got.float(), want.float(), K6_TOL, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1,V", [(3, 101, 67, 29), (2, 300, 9, 29),
+                                      (2, 40, 9, 70)])
+def test_k6_is_deterministic(B, T, U1, V):
+    # Each split's dgp slab and each block's dW2 and db2 are summed in a
+    # fixed order, with no atomics: two calls must be bit-equal.
+    dev = _card()
+    fp, gp, w2, b2, lab, gb, ge = _joint_tail_inputs(B, T, U1, 512, V, 6, dev)
+    cfg = (0, "relu", 20.0, "bfloat16")
+    runs = [port_k56.joint_tail_bwd(fp, gp, w2, b2, lab, gb, ge, *cfg)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k6_plan_on_this_card_keeps_the_long_step_scratch_small():
+    # The long train step (B=128, T'=836, U+1=215, K=512, V=29) with this
+    # card's SM count and K6's occupancy: its splits' dgp slabs and blocks'
+    # dW2/db2 stay within 0.5 GB (the per-16-frame partials took 3.43 GB).
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    attrs = port_k56.k6_attributes(dev)
+    assert attrs["localSizeBytes"] == 0 and attrs["blocksPerSM"] >= 1
+    n_split, _ = port_k56.k6_plan(128, 836, 215, 512, sms,
+                                  attrs["blocksPerSM"])
+    assert n_split >= 1
+    assert port_k56.k6_scratch_bytes(128, 215, 512, 32, n_split) <= 0.5e9
 
 
 def _ctc_inputs(B, T, U, V, blank, seed, dev):

@@ -1,5 +1,6 @@
 """The port's joint tail (K5 and K6, plain versions on the CPU) against the
-JAX package's ``joint_tail_blank_emit``.
+JAX package's ``joint_tail_blank_emit``; and K6's split plan
+(``k6_plan``, ``k6_splits``), which the card's wrapper follows.
 
 The JAX side runs its Pallas kernels in interpret mode
 (``pltpu.force_tpu_interpret_mode()``), as ``tests/test_pallas_joint.py``
@@ -146,3 +147,41 @@ def test_the_card_takes_only_bf16_products():
     with pytest.raises(ValueError, match="bf16 products"):
         port_jk._card_operands("joint_tail_fwd", t["fp"], t["gp"], t["w2"],
                                t["b2"], t["labels"], "relu", "float32")
+
+
+@pytest.mark.parametrize("T,n_split", [(1, 1), (31, 1), (32, 1), (33, 2),
+                                       (101, 3), (101, 4), (836, 3),
+                                       (836, 27), (300, 7)])
+def test_k6_splits_cover_the_frames_once(T, n_split):
+    splits = port_jk.k6_splits(T, n_split)
+    assert len(splits) == n_split
+    assert splits[0][0] == 0 and splits[-1][1] == T
+    for (lo, hi), (nlo, _) in zip(splits, splits[1:]):
+        assert lo < hi == nlo  # no gap, no overlap, none empty
+    for lo, _ in splits:
+        assert lo % port_jk.T_TILE == 0
+    sizes = [-(-(hi - lo) // port_jk.T_TILE) for lo, hi in splits]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("B,T,U1", [(8, 836, 215), (32, 836, 215),
+                                    (128, 836, 215), (32, 251, 65),
+                                    (3, 101, 67), (2, 300, 9), (1, 5, 3)])
+def test_k6_plan_fills_the_card_within_the_scratch_cap(B, T, U1):
+    sms = 132  # an H100 SXM
+    n_split, t_tile = port_jk.k6_plan(B, T, U1, 512, sms)
+    n_tiles = -(-T // t_tile)
+    assert t_tile == port_jk.T_TILE and 1 <= n_split <= n_tiles
+    splits = port_jk.k6_splits(T, n_split, t_tile)
+    assert splits[0][0] == 0 and splits[-1][1] == T
+    assert all(lo < hi for lo, hi in splits)
+    if B * n_tiles >= sms:  # at least one full wave where the tiles allow
+        assert B * n_split >= sms
+    assert port_jk.k6_scratch_bytes(B, U1, 512, 32, n_split) \
+        <= port_jk.K6_SCRATCH_CAP
+
+
+def test_k6_scratch_at_the_long_shape_is_under_half_a_gigabyte():
+    # B=128 x 16.7 s: T'=836, U+1=215, K=512, V=29 (Vp=32), on 132 SMs.
+    n_split, _ = port_jk.k6_plan(128, 836, 215, 512, 132)
+    assert port_jk.k6_scratch_bytes(128, 215, 512, 32, n_split) <= 0.5e9
