@@ -23,17 +23,22 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              version's and cuDNN's ``nn.LSTM`` backward times (the yardstick
              also computes dW and dx).
 5. k34       K3 and K4 (the transducer lattice forward and backward) against
-             their plain versions on the 5 s (B=32, T'=251, U+1=65) and 15 s
-             (T'=751, U+1=193) lattices: errors and times (no single library
-             call computes the lattice, so no yardstick).
+             their plain versions on the 5 s (B=32, T'=251, U+1=65), 15 s
+             (T'=751, U+1=193) and long-step (B=128, T'=836, U+1=215)
+             lattices, K4's plain version on K3's own alphas and ll: errors,
+             times and bounds (no single library call computes the lattice,
+             so no yardstick); at the 15 s lattice and the long lattice's
+             first 8 rows, the K3-then-K4 chain's and the fp32 plain chain's
+             errors against a float64 run of the plain chain.
 6. k56       K5 and K6 (the joint tail forward and backward) against their
              plain versions at the flagship's lattice (B=32, T'=251, U+1=65),
              on the first 8 rows of the long step's lattice (T'=836,
              U+1=215) and at V=1024: errors, the kernels' and the plain
              versions' times beside the bounds, K6's split plan and scratch
-             bytes at each shape; first a ``k6_attrs`` line (K6's registers,
-             local, shared bytes and blocks an SM for each activation), which
-             fails if the kernel spills to local memory.
+             bytes at each shape; first ``k5_attrs`` and ``k6_attrs`` lines
+             (each kernel's registers, local, shared bytes and blocks an SM
+             for each activation), which fail if either spills to local
+             memory.
 7. flagship  ``rnn_t_en`` at full width with seeded random weights transcribes
              B=32 x 5 s of seeded audio through ``build_transcriber``: one
              warm-up and three timed runs, K1's launches on that path, a
@@ -161,12 +166,18 @@ K1_OUTPUTS = ("ys", "cs", "ifgo", "hT", "cT")
 K2_TOL = 2e-3
 K2_OUTPUTS = ("dz", "dh0", "dc0")
 
-# K3 and K4 against their plain versions: the same fp32 recursion in the same
-# order; CUDA's expf/log1pf and the library's may differ by an ulp, which the
-# long chain of rows compounds: 1e-5 of the magnitude (plus 1e-3 absolute)
-# for alphas and the log-likelihood (some 10^3 at the 15 s shape), 1e-4
-# absolute for the occupancy gradients (in [0, 1]).
+# K3 against its plain version: the same fp32 recursion, K3 by anti-diagonals
+# and the plain version by the TPU kernel's scan, so the sums run in another
+# order, and CUDA's expf/log1pf and the library's may differ by an ulp, all
+# compounded along the lattice: 1e-5 of the magnitude (plus 1e-3 absolute) for
+# alphas and the log-likelihood (some 10^3 at the 15 s shape; K3 read 2.9e-6
+# of the magnitude at the long lattice on an H100: PERF.md section 6).  K4
+# against its plain version on the same alphas and ll: the same scan in the
+# same order, 1e-4 absolute for the occupancy gradients (in [0, 1]).  The
+# K3-then-K4 chain against a float64 run of the plain chain may err by at
+# most CHAIN_RATIO times the fp32 plain chain's, on ll and each occupancy.
 K3_RTOL, K3_ATOL, K4_ATOL = 1e-5, 1e-3, 1e-4
+CHAIN_RATIO = 3.0
 
 # The JAX package's eval-mode transducer loss (mean over the 256-utterance
 # eval split of configs/synthetic_medium_rnnt.py, batches of 32, full joint)
@@ -519,11 +530,12 @@ def lattice_passes(U1: int) -> int:
 
 
 def k3_work(B: int, T: int, U1: int):
-    """(fp32 operations, bytes) of one K3 call: some 8 operations per cell
-    and scan pass (logaddexp: max, difference, |.|, exp, log1p, add; and the
-    running sum of C), and the bytes that must move (both log-prob tensors
-    and the lengths read once; alphas and ll written once)."""
-    flops = 8.0 * B * T * U1 * lattice_passes(U1)
+    """(fp32 operations, bytes) of one K3 call: the function's own work, one
+    logaddexp (max, difference, |.|, exp, log1p, add) and two additions
+    (alpha + blank, alpha + emit) per cell, whatever order computes it; and
+    the bytes that must move (both log-prob tensors and the lengths read
+    once; alphas and ll written once)."""
+    flops = 8.0 * B * T * U1
     nbytes = 2 * B * T * U1 * 4 + 2 * B * 4 + T * B * U1 * 4 + B * 4
     return flops, nbytes
 
@@ -703,8 +715,10 @@ def _lattice_case(B, T, U1, seed, dev):
 
 
 def lattice_errors(fwd, bwd, fwd_ref, bwd_ref, label: str):
-    """Largest errors of K3 (alphas of reachable cells, ll) and K4 (both
-    occupancies) against the plain versions; raises beyond tolerance."""
+    """Largest errors of K3 (alphas of reachable cells, ll) against its plain
+    version and of K4 (both occupancies) against its plain version on the
+    same inputs: ``bwd_ref`` is the plain K4 fed K3's own alphas and ll, as
+    ``bwd`` is.  Raises beyond tolerance."""
     alphas, ll = fwd
     a_ref, ll_ref = fwd_ref
     reach = a_ref > -1e29
@@ -725,12 +739,50 @@ def lattice_errors(fwd, bwd, fwd_ref, bwd_ref, label: str):
     return errs
 
 
-def phase_k34(dev):
-    """K3 and K4 against their plain versions, timed, on the 5 s and 15 s
-    lattices of the flagship at B=32."""
+def lattice_chain_errors(args, g, label: str):
+    """The kernels' chain (K3, then K4 on its alphas) and the plain chain in
+    fp32, each against a float64 run of the plain chain: the largest |error|
+    of alphas (reachable cells), ll and each occupancy.  Raises when the
+    kernels' error on ll or an occupancy exceeds CHAIN_RATIO times the plain
+    chain's."""
     from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as k
 
-    shapes = {"5s": (32, 251, 65), "15s": (32, 751, 193)}
+    f64 = torch.float64
+    a64, ll64 = k.rnnt_lattice_fwd_reference(*args, dtype=f64)
+    occ64 = k.rnnt_lattice_bwd_reference(*args, a64, ll64, g, dtype=f64)
+    reach = a64 > -1e29
+
+    def errs(fwd, occ):
+        return {"alphas": (fwd[0].double() - a64)[reach].abs().max().item(),
+                "ll": (fwd[1].double() - ll64).abs().max().item(),
+                "gblank": (occ[0].double() - occ64[0]).abs().max().item(),
+                "gemit": (occ[1].double() - occ64[1]).abs().max().item()}
+
+    kf = k.rnnt_lattice_fwd(*args)
+    kernels = errs(kf, k.rnnt_lattice_bwd(*args, *kf, g))
+    pf = k.rnnt_lattice_fwd_reference(*args)
+    plain = errs(pf, k.rnnt_lattice_bwd_reference(*args, *pf, g))
+    ratio = {n: kernels[n] / plain[n] if plain[n] > 0 else
+             (0.0 if kernels[n] == 0 else float("inf")) for n in kernels}
+    bad = {n: ratio[n] for n in ("ll", "gblank", "gemit")
+           if not ratio[n] <= CHAIN_RATIO}
+    if bad:
+        raise AssertionError(f"K3->K4 chain {label}: error against float64 "
+                             f"{kernels}, the plain chain's {plain}: ratios "
+                             f"{bad} over {CHAIN_RATIO}")
+    return {"kernels": kernels, "plain": plain, "ratio": ratio}
+
+
+def phase_k34(dev):
+    """K3 and K4 against their plain versions, timed, on the 5 s and 15 s
+    lattices of the flagship at B=32 and the long step's (B=128, T'=836,
+    U+1=215); K4's plain version takes K3's own alphas and ll.  Then both
+    chains against float64 at the 15 s lattice and the long lattice's first
+    8 rows."""
+    from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as k
+
+    shapes = {"5s": (32, 251, 65), "15s": (32, 751, 193),
+              "long": (LONG_BATCH, 836, LONG_LABELS + 1)}
     for i, (label, (B, T, U1)) in enumerate(shapes.items()):
         args = _lattice_case(B, T, U1, seed=30 + i, dev=dev)
         g = torch.ones((B,), device=dev) / B  # d mean(-ll) / d ll, negated
@@ -738,8 +790,9 @@ def phase_k34(dev):
         bwd = k.rnnt_lattice_bwd(*args, *fwd, g)
         torch.cuda.synchronize()
         fwd_ref = k.rnnt_lattice_fwd_reference(*args)
-        bwd_ref = k.rnnt_lattice_bwd_reference(*args, *fwd_ref, g)
+        bwd_ref = k.rnnt_lattice_bwd_reference(*args, *fwd, g)
         errs = lattice_errors(fwd, bwd, fwd_ref, bwd_ref, label)
+        del fwd_ref, bwd_ref, bwd
         times = {
             "k3_ms": cuda_ms(lambda: k.rnnt_lattice_fwd(*args), 10),
             "k4_ms": cuda_ms(lambda: k.rnnt_lattice_bwd(*args, *fwd, g), 10),
@@ -747,13 +800,22 @@ def phase_k34(dev):
                 *args), 2),
             "k4_plain_ms": cuda_ms(lambda: k.rnnt_lattice_bwd_reference(
                 *args, *fwd, g), 2)}
+        chain = None
+        if label != "5s":
+            rows = min(B, 8)
+            chain = lattice_chain_errors(
+                [a[:rows].contiguous() for a in args], g[:rows].contiguous(),
+                f"{label} (first {rows} rows)")
         b3, by3 = bound(*k3_work(B, T, U1), peak=PEAK_FP32_FLOPS)
         b4, by4 = bound(*k4_work(B, T, U1), peak=PEAK_FP32_FLOPS)
         emit("k34", shape=label, B=B, T=T, U1=U1, max_abs_err=errs,
              tolerance={"k3_rtol": K3_RTOL, "k3_atol": K3_ATOL,
-                        "k4_atol": K4_ATOL}, **times, library_ms=None,
+                        "k4_atol": K4_ATOL, "chain_ratio": CHAIN_RATIO},
+             chain_vs_float64=chain, **times, library_ms=None,
              k3_bound_ms=b3, k3_bound_by=by3, k4_bound_ms=b4,
              k4_bound_by=by4)
+        del args, fwd
+        torch.cuda.empty_cache()
 
 
 def k56_work(B: int, T: int, U1: int, K: int, V: int, in_bytes: int = 2,
@@ -823,18 +885,20 @@ def phase_k56(dev):
     the online log-sum-exp).  Times are CUDA-event medians of the wrapper
     calls (operand layout and, for K6, the sums of its slabs included).
     First K6's kernel attributes for each activation, at K=512 and V=29
-    (one vocabulary chunk, the main path) and V=1024 (its chunked form): it
-    must not spill."""
+    (one vocabulary chunk, the main path) and V=1024 (its chunked form), and
+    K5's likewise: neither may spill."""
     from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
 
-    attrs = {act: k.k6_attributes(dev, act) for act in k.ACTS}
-    attrs.update({f"{act}_V1024": k.k6_attributes(dev, act, 1024)
-                  for act in k.ACTS})
-    emit("k6_attrs", K=512, **attrs)
-    spills = {a: v["localSizeBytes"] for a, v in attrs.items()
-              if v["localSizeBytes"] > 0}
+    spills = {}
+    for name, query in (("k5", k.k5_attributes), ("k6", k.k6_attributes)):
+        attrs = {act: query(dev, act) for act in k.ACTS}
+        attrs.update({f"{act}_V1024": query(dev, act, 1024)
+                      for act in k.ACTS})
+        emit(f"{name}_attrs", K=512, **attrs)
+        spills.update({f"{name}_{a}": v["localSizeBytes"]
+                       for a, v in attrs.items() if v["localSizeBytes"] > 0})
     if spills:
-        raise AssertionError(f"K6 spills to local memory: {spills} bytes a "
+        raise AssertionError(f"K5/K6 spill to local memory: {spills} bytes a "
                              "thread")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = {"5s": (32, 251, 65, 512, 29),
@@ -862,7 +926,7 @@ def phase_k56(dev):
         b6, by6 = bound(f6, n6)
         Vp = -(-V // k.V_TILE) * k.V_TILE
         n_split, t_tile = k.k6_plan(B, T, U1, K, sms,
-                                    attrs["relu"]["blocksPerSM"], Vp)
+                                    k.k6_attributes(dev)["blocksPerSM"], Vp)
         emit("k56", shape=label, B=B, T=T, U1=U1, K=K, V=V, max_abs_err=errs,
              err_over_magnitude=rel, k6_n_split=n_split, k6_t_tile=t_tile,
              k6_scratch_bytes=k.k6_scratch_bytes(B, U1, K, Vp, n_split),
@@ -1826,11 +1890,13 @@ def phase_train_long(dev):
     LONG_LAUNCHES a step and no plain version runs; finite loss, every
     parameter moved after step 1; step time, split, peak memory; one traced
     step (device time by kernel, idle share); the step's K1, K2 (one call of
-    each shape), K5 and K6 calls replayed against their plain versions; then
+    each shape), K3, K4, K5 and K6 calls replayed against their plain
+    versions; then
     the same batch through the chunked path (the planner's chunk) for its
     time and peak memory, or its out-of-memory error."""
     from myrtlespeech_tpu_torch.builders.build import build_task
-    from myrtlespeech_tpu_torch.ops.cuda import joint_kernel, lstm_kernel
+    from myrtlespeech_tpu_torch.ops.cuda import (joint_kernel, lstm_kernel,
+                                                 rnnt_kernel)
     from myrtlespeech_tpu_torch.run import train
     from myrtlespeech_tpu_torch.run.infer import load_config
 
@@ -1916,12 +1982,21 @@ def phase_train_long(dev):
     # versions on the first of each shape), K5's and K6's one call each.
     calls = record_many({"k1": (lstm_kernel, "lstm_fwd"),
                          "k2": (lstm_kernel, "lstm_bwd"),
+                         "k3": (rnnt_kernel, "rnnt_lattice_fwd"),
+                         "k4": (rnnt_kernel, "rnnt_lattice_bwd"),
                          "k5": (joint_kernel, "joint_tail_fwd"),
                          "k6": (joint_kernel, "joint_tail_bwd")},
                         lambda: step(state, batch))
     torch.cuda.synchronize()
     lstm = lstm_replays(calls.pop("k1"), calls.pop("k2"), "long step", dev,
                         plain_per_shape=True)
+    (k3_args,), (k4_args,) = calls.pop("k3"), calls.pop("k4")
+    lat_errs = lattice_errors(
+        rnnt_kernel.rnnt_lattice_fwd(*k3_args),
+        rnnt_kernel.rnnt_lattice_bwd(*k4_args),
+        rnnt_kernel.rnnt_lattice_fwd_reference(*k3_args),
+        rnnt_kernel.rnnt_lattice_bwd_reference(*k4_args), "long step")
+    del k3_args, k4_args
     (k5_args,), (k6_args,) = calls["k5"], calls["k6"]
     del calls
     torch.cuda.empty_cache()
@@ -2007,7 +2082,8 @@ def phase_train_long(dev):
          kernel_device_ms=kernel_ms,
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
          k1=lstm["k1"], k2=lstm["k2"], k1_long=k1_long, k2_long=k2_long,
-         k1_tolerance=K1_TOL, k2_tolerance=K2_TOL, k56_max_abs_err=k56_errs,
+         k1_tolerance=K1_TOL, k2_tolerance=K2_TOL,
+         lattice_max_abs_err=lat_errs, k56_max_abs_err=k56_errs,
          k56_err_over_magnitude=k56_rel,
          k5_plain_device_ms=span_ms(k5_plain),
          k6_plain_device_ms=span_ms(k6_plain), k5_bound_ms=b5,

@@ -1,7 +1,8 @@
 // Helpers shared by K5 (csrc/joint_tail.cu) and K6 (csrc/joint_tail_bwd.cu),
 // the transducer joint tail forward and backward: bf16 pairs, the tensor-core
-// product, the hidden activation, and the copies into shared memory.  Each source is its own library, so everything here has internal
-// linkage.
+// product and its ldmatrix loads, the hidden activation, and the copies into
+// shared memory.  Each source is its own library, so everything here has
+// internal linkage.
 
 #pragma once
 
@@ -35,6 +36,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l & 7 of matrix l >> 3; r[i] is this thread's pair of matrix i.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // act(f + g) on a pair, the add rounded to bf16 as the TPU kernel's bf16 add.

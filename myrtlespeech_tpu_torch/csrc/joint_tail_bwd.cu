@@ -112,10 +112,10 @@ __host__ __device__ inline Layout layout(int Vp) {
   return s;
 }
 
-// A profiling build (-DK6_PHASE_CLOCKS, port_tools/k6_probe.py --phases)
-// sums thread 0's clocks in each phase of a unit over all blocks: build h and
-// the partial logits, wait at the first barrier, dlogits, wait at the
-// second, dW2, dh and dgp; and the whole kernel.
+// A profiling build (-DK6_PHASE_CLOCKS, port_tools/kernel_probe.py --kernel
+// k6 --phases) sums thread 0's clocks in each phase of a unit over all
+// blocks: build h and the partial logits, wait at the first barrier,
+// dlogits, wait at the second, dW2, dh and dgp; and the whole kernel.
 #ifdef K6_PHASE_CLOCKS
 __device__ unsigned long long k6_phase_clocks[8];
 #define K6_TICK(i)                   \
@@ -128,10 +128,6 @@ __device__ unsigned long long k6_phase_clocks[8];
 #define K6_TICK(i)
 #endif
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 8 bytes from device to shared memory without holding registers; visible
 // to this thread after cp_wait().
 __device__ __forceinline__ void cp8(uint32_t dst, const void* src) {
@@ -142,15 +138,6 @@ __device__ __forceinline__ void cp8(uint32_t dst, const void* src) {
 
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
-// row l & 7 of matrix l >> 3; r[i] is this thread's pair of matrix i.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 // The same, each matrix transposed.

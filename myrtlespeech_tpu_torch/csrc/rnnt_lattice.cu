@@ -20,25 +20,41 @@
 //       gemit[t, u]  = exp(alpha[t,u] + emit[t,u] + beta[t,u+1] - ll) * g
 //       both 0 at padded frames, and a NaN gemit is 0 (_vjp_bwd's masking).
 //
-// Each row along u is a linear recurrence in the (logaddexp, +) semiring,
-// solved as the TPU kernel solves it (_linrec_scan): a Hillis-Steele scan
+// K3 walks each row's lattice by anti-diagonals d = t + u: the cells of one
+// anti-diagonal are independent, so a row takes T + U steps, each one
+// logaddexp deep.  Thread u holds alpha[t-1, u] + blank[t-1, u] in a
+// register and receives alpha[t, u-1] + emit[t, u-1] from lane u-1 by a
+// shuffle (at a warp's edge, through a shared slot double-buffered by the
+// diagonal's parity, so one barrier a diagonal is enough).  A warp's 32
+// lanes stand on 32 rows at once, so it keeps its last 32 rows of blank,
+// emit and alpha in shared memory: it loads a whole row of its columns
+// along u a diagonal, some diagonals ahead, each lane takes its next cell
+// from there off the chain, and each row of alphas goes out along u once
+// its last lane has it.  (Loaded and stored by each lane on its own
+// column, 32 rows a warp instruction, they cost the long step's K3 over a
+// third of its time: PERF.md section 6.)  This sums alpha in another order
+// than the TPU kernel's scan (alpha[0, u] is the running sum of emit[0, :u]
+// from the left; the plain version's scan sums in a tree), and its alphas
+// lie closer to a float64 run (PERF.md section 6).
+// K4 solves each row along u, a linear recurrence in the (logaddexp, +)
+// semiring, as the TPU kernel solves it (_linrec_scan): a Hillis-Steele scan
 // over affine maps x -> logaddexp(A, C + x), ceil(log2(U+1)) passes.
 // -1e30 stands for -inf throughout, so that no -inf - -inf makes a NaN, and
 // logaddexp is max + log1pf(expf(-|a - b|)) with CUDA's precise expf and
 // log1pf (no fast math).
 //
-// What bounds it on the card: the bytes.  Each cell is read once or twice
-// and written once, with a few dozen flops of scan work on it; at the
-// flagship shape (B=32, T'=251, U+1=65) that is 6 MB for K3 and 10 MB for
-// K4.  In practice the serial chain of T rows, each some 2 * log2(U+1)
-// barriers deep, is what the card waits on.
+// What bounds them on the card: the bytes.  Each cell is read once or twice
+// and written once, with a few flops on it; at the flagship shape (B=32,
+// T'=251, U+1=65) that is 6 MB for K3 and 10 MB for K4.  In practice each
+// row's serial chain is what the card waits on: K3's T + U diagonals, each a
+// logaddexp, a shuffle and a barrier; K4's T rows, each some 2 * log2(U+1)
+// barriers deep.
 //
 // What the design does about it: rows b are independent, so one block per
-// row carries its lattice row through all T steps inside the kernel (one
-// launch, no grid barrier), one thread per u, the scan in shared memory
-// with __syncthreads between passes.  The TPU kernel's 8-row slabs, batch
-// padding and (B, U+1) broadcast of ll (Mosaic workarounds) are not carried
-// over.
+// row carries its lattice row through the whole lattice inside the kernel
+// (one launch, no grid barrier), one thread per u.  The TPU kernel's 8-row
+// slabs, batch padding and (B, U+1) broadcast of ll (Mosaic workarounds) are
+// not carried over.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,6 +63,10 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr int kPrefetch = 8;  // K3's diagonals of loads in flight
+// K3's warps whose rows of blank, emit and alpha (8 KB a warp) fit in the
+// 227 KB of shared memory a block can ask for.
+constexpr int kMaxStagedWarps = 28;
 
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
@@ -103,55 +123,144 @@ __device__ __forceinline__ float emit_at(const float* __restrict__ lpe, int t,
                                   : lpe[static_cast<size_t>(t) * U1 + u];
 }
 
-// K3.  Grid: (B); block: U1 rounded up to a warp; 4 * U1 floats of dynamic
-// shared memory, plus U1 for the emit row shifted by one.
-__global__ void rnnt_fwd_kernel(const float* __restrict__ lp_blank,  // (B,T,U1)
-                                const float* __restrict__ lp_emit,   // (B,T,U1)
-                                const int* __restrict__ logit_lens,  // (B,)
-                                const int* __restrict__ label_lens,  // (B,)
-                                float* __restrict__ alphas,          // (T,B,U1)
-                                float* __restrict__ ll,              // (B,)
-                                int B, int T, int U1) {
-  extern __shared__ float smem[];
-  float* A = smem;
-  float* C = smem + 2 * U1;
-  float* row = smem + 4 * U1;  // this row's alpha, then its terminal value
+// blank[t, u] and emit[t, u] into bl and em when (t, u) lies in the
+// lattice; else they are left as they are.
+__device__ __forceinline__ void fetch_cell(float& bl, float& em,
+                                           const float* __restrict__ lpb,
+                                           const float* __restrict__ lpe,
+                                           int t, int u, int T, int U1,
+                                           int flen, int ulen, bool col) {
+  if (col && t >= 0 && t < T) {
+    bl = blank_at(lpb, t, u, U1, flen);
+    em = emit_at(lpe, t, u, U1, flen, ulen);
+  }
+}
+
+// K3.  Grid: (B); block: U1 rounded up to a warp (at most 1024 threads);
+// 8 KB of dynamic shared memory a warp when STAGED, else 4 KB.  Thread u
+// computes alpha[d - u, u] on diagonal d; its warp's lanes are on 32
+// consecutive rows t at once.
+//
+// The warp's rows of its 32 columns live in shared memory by t mod 32
+// (every access bank-conflict free: lane l touches column l).  STAGED, each
+// diagonal the warp loads the row its lane 0 reaches next, coalesced, kP
+// diagonals ahead into registers, then into the rows of blank and emit, and
+// each lane takes its next cell from there at the end of the diagonal
+// before, off the chain; unSTAGED (above kMaxStagedWarps, where they do not
+// fit), each lane loads its own cells kP diagonals ahead.  Either way a
+// lane overwrites its cell's blank with alpha, and the warp stores each row
+// of alphas along u once its last lane has written it.
+template <int P, bool STAGED>
+__global__ void __launch_bounds__(1024)
+rnnt_fwd_kernel(const float* __restrict__ lp_blank,  // (B, T, U1)
+                const float* __restrict__ lp_emit,   // (B, T, U1)
+                const int* __restrict__ logit_lens,  // (B,)
+                const int* __restrict__ label_lens,  // (B,)
+                float* __restrict__ alphas,          // (T, B, U1)
+                float* __restrict__ ll,              // (B,)
+                int B, int T, int U1) {
+  extern __shared__ float ring[];  // (warps, STAGED ? 2 : 1, 32, 32)
+  __shared__ float edge[2][32];    // lane 31's send of each warp, by parity
   const int b = blockIdx.x;
-  const int u = threadIdx.x;
+  const int u = threadIdx.x, lane = u & 31, warp = u >> 5;
+  const bool col = u < U1;
   const int flen = logit_lens[b];
   const int ulen = label_lens[b];
-  const float* lpb = lp_blank + static_cast<size_t>(b) * T * U1;
-  const float* lpe = lp_emit + static_cast<size_t>(b) * T * U1;
+  const size_t base = static_cast<size_t>(b) * T * U1;
+  const float* lpb = lp_blank + base;
+  const float* lpe = lp_emit + base;
+  float* out = alphas + static_cast<size_t>(b) * U1 + u;
+  const size_t out_stride = static_cast<size_t>(B) * U1;
+  float* rows = ring + warp * (STAGED ? 2 : 1) * 32 * 32;  // blank, alpha
+  float* erows = rows + 32 * 32;                           // emit (STAGED)
+  // The row a lane loads for diagonal d, less d: STAGED, lane 0's row for
+  // every lane; else the lane's own.
+  const int lag = warp * 32 + (STAGED ? 0 : lane);
 
-  float alpha = kNegInf;
-  for (int t = 0; t < T; ++t) {
-    float a = kNegInf, c = 0.f;
-    if (u < U1) {
-      const float e_left = u > 0 ? emit_at(lpe, t, u - 1, U1, flen, ulen)
-                                 : 0.f;
-      if (t == 0) {
-        // alpha[0, u] = sum_{w<u} emit[0, w]: a = [0, -inf, ...],
-        // c = [0, emit[0, 0], emit[0, 1], ...].
-        a = u == 0 ? 0.f : kNegInf;
-        c = e_left;
+  // Registers ahead of the rows: blank and emit of row d - lag + P at
+  // column u, loaded on diagonal d into slot d mod P.
+  float pb[P], pe[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    pb[j] = 0.f;
+    pe[j] = kNegInf;
+    fetch_cell(pb[j], pe[j], lpb, lpe, j - lag, u, T, U1, flen, ulen, col);
+  }
+  if (threadIdx.x < 64) edge[threadIdx.x >> 5][lane] = kNegInf;
+  __syncthreads();
+
+  // up = alpha[t-1, u] + blank[t-1, u]; at t = 0 it is -inf but for u = 0,
+  // where 0 makes alpha[0, 0] = logaddexp(0, -1e30) = 0 exactly.
+  float up = u == 0 ? 0.f : kNegInf;
+  float send = kNegInf;  // alpha[t, u] + emit[t, u], for lane u+1
+  float bl = 0.f, em = kNegInf;  // blank and emit of this diagonal's cell
+  const int D = T + U1 - 1;
+  // The warp's last lattice column, whose lane completes each of its rows.
+  const int last = min(31, U1 - 1 - warp * 32);
+  const bool one_warp = blockDim.x == 32;
+  for (int d0 = 0; d0 < D; d0 += P) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int d = d0 + j;
+      if (d >= D) break;
+      const int t = d - u;
+      if (STAGED) {
+        const int e = d - lag;  // the row lane 0 reaches now
+        if (e >= 0 && e < T) {
+          rows[(e & 31) * 32 + lane] = pb[j];
+          erows[(e & 31) * 32 + lane] = pe[j];
+        }
+        if (lane == 0) {
+          bl = pb[j];
+          em = pe[j];
+        }
       } else {
-        a = alpha + blank_at(lpb, t - 1, u, U1, flen);
-        c = u == 0 ? kNegInf : e_left;
+        bl = pb[j];
+        em = pe[j];
       }
+      fetch_cell(pb[j], pe[j], lpb, lpe, d + P - lag, u, T, U1, flen, ulen,
+                 col);
+      float left = __shfl_up_sync(0xffffffffu, send, 1);
+      if (lane == 0) left = warp == 0 ? kNegInf : edge[(d + 1) & 1][warp - 1];
+      if (col && t >= 0 && t < T) {
+        // At t = 0 (u > 0) logaddexp(-1e30, left) is left exactly.
+        const float a = logaddexp(up, left);
+        rows[(t & 31) * 32 + lane] = a;
+        send = a + em;
+        up = a + bl;
+      }
+      if (lane == 31) edge[d & 1][warp] = send;
+      __syncwarp();
+      // Row r of the warp's alphas is complete: lane `last` wrote it just
+      // now.
+      const int r = d - (warp * 32 + last);
+#ifndef K3_SKIP_ALPHA_STORES  // a measuring build, port_tools/kernel_probe.py
+      if (col && r >= 0 && r < T)
+        out[r * out_stride] = rows[(r & 31) * 32 + lane];
+#endif
+      // The next cell's blank and emit, which lane 0 loaded on an earlier
+      // diagonal (on this one for lane 1).
+      if (STAGED && lane > 0 && col && t + 1 >= 0 && t + 1 < T) {
+        bl = rows[((t + 1) & 31) * 32 + lane];
+        em = erows[((t + 1) & 31) * 32 + lane];
+      }
+      // One barrier a diagonal: the edge slots and a row of the rings are
+      // rewritten no sooner than the diagonal after the one that last reads
+      // them.
+      if (one_warp) __syncwarp();
+      else __syncthreads();
     }
-    alpha = linrec_scan(a, c, A, C, U1, false);
-    if (u < U1)
-      alphas[(static_cast<size_t>(t) * B + b) * U1 + u] = alpha;
   }
   // ll = alpha[T-1, ulen] + blank[T-1, ulen]; 0 when ulen lies past the
   // lattice, as the TPU kernel's masked row sum gives.
-  if (u < U1) row[u] = alpha + blank_at(lpb, T - 1, u, U1, flen);
-  __syncthreads();
-  if (u == 0) ll[b] = (ulen >= 0 && ulen < U1) ? row[ulen] : 0.f;
+  if (col && u == ulen) ll[b] = up;
+  if (u == 0 && !(ulen >= 0 && ulen < U1)) ll[b] = 0.f;
 }
 
-// K4.  Same grid, block and shared memory as K3.  g (B,) is the cotangent
-// of ll; gblank and gemit are (B, T, U1), the layout of the inputs.
+// K4.  Grid: (B); block: U1 rounded up to a warp; 5 * U1 floats of dynamic
+// shared memory (the scan's double buffers and beta[t] of the row).  g (B,)
+// is the cotangent of ll; gblank and gemit are (B, T, U1), the layout of the
+// inputs.
 __global__ void rnnt_bwd_kernel(const float* __restrict__ lp_blank,
                                 const float* __restrict__ lp_emit,
                                 const int* __restrict__ logit_lens,
@@ -216,15 +325,23 @@ extern "C" int rnnt_lattice_fwd(const void* lp_blank, const void* lp_emit,
                                 const void* logit_lens, const void* label_lens,
                                 void* alphas, void* ll, int B, int T, int U1,
                                 void* stream) {
-  rnnt_fwd_kernel<<<B, block_for(U1), smem_for(U1),
-                    static_cast<cudaStream_t>(stream)>>>(
+  const int threads = block_for(U1);
+  const bool staged = threads / 32 <= kMaxStagedWarps;
+  const int smem = threads * (staged ? 64 : 32) *
+                   static_cast<int>(sizeof(float));
+  const auto kernel = staged ? rnnt_fwd_kernel<kPrefetch, true>
+                             : rnnt_fwd_kernel<kPrefetch, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lp_blank), static_cast<const float*>(lp_emit),
       static_cast<const int*>(logit_lens), static_cast<const int*>(label_lens),
       static_cast<float*>(alphas), static_cast<float*>(ll), B, T, U1);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 on `stream`, as K3.
+// K4 on `stream`: one launch, one block per batch row, as K3.
 extern "C" int rnnt_lattice_bwd(const void* lp_blank, const void* lp_emit,
                                 const void* logit_lens, const void* label_lens,
                                 const void* alphas, const void* ll,

@@ -42,11 +42,12 @@ from typing import List, Tuple
 import torch
 
 ACTS = ("relu", "hardtanh", "identity")
-K_TILE = 64    # K5 zero-pads K to a multiple of this (one warp's K slice)
+K_TILE = 64    # K5 zero-pads K to a multiple of this
 V_TILE = 32    # V is padded to a multiple of this (one chunk of logits)
-MAX_K = 512    # at most 8 warps a block; K6 zero-pads K to this
+MAX_K = 512    # the most K the kernels take; K6 zero-pads K to this
 MAX_U1 = 1024  # the lattice's U+1 the kernels are held to
-T_TILE = 32    # frames of one of K6's t-tiles: two mma row tiles
+T_TILE = 32    # frames of one of K5's and K6's t-tiles: two mma row tiles
+K5_U_GROUP = 2  # u of one of K5's warp groups
 # K6's scratch (each split's dgp slab, each block's dW2 and db2) at most.
 K6_SCRATCH_CAP = 0.5e9
 # A split's own work besides its t-tiles (loading W2, writing its dW2 and
@@ -152,6 +153,19 @@ def joint_tail_bwd_reference(fp: torch.Tensor, gp: torch.Tensor,
             dw2.to(w2.dtype), dlogits.sum((0, 1, 2)).to(b2.dtype))
 
 
+def k5_shared_wavefronts(u_group: int = K5_U_GROUP, t_tile: int = T_TILE
+                         ) -> float:
+    """Shared-memory wavefronts (128 bytes a warp) that K5 issues per
+    ``mma.sync`` product in a k16 step, when a warp takes ``u_group`` u over
+    ``t_tile`` frames: fp's A fragments of each m16 row tile and W2's B
+    fragments of the 4 n-tiles by ``ldmatrix.x4`` (4 wavefronts each), and a
+    gp word pair per u (1 each: a broadcast), for ``u_group`` x row tiles x 4
+    products."""
+    row_tiles = t_tile // 16
+    loads = 4 * row_tiles + 4 * 2 + 2 * u_group
+    return loads / (u_group * row_tiles * 4)
+
+
 def k6_splits(T: int, n_split: int, t_tile: int = T_TILE
               ) -> List[Tuple[int, int]]:
     """The frames ``[t_lo, t_hi)`` of each of a batch row's ``n_split``
@@ -205,6 +219,8 @@ def _library(name: str = "joint_tail") -> ctypes.CDLL:
             lib.joint_tail_fwd.argtypes = [ptr] * 7 + [ints] * 8 \
                 + [ctypes.c_float, ptr]
             lib.joint_tail_fwd.restype = ctypes.c_int
+            lib.joint_tail_fwd_attrs.argtypes = [ints] * 3 + [ptr]
+            lib.joint_tail_fwd_attrs.restype = ctypes.c_int
         else:
             lib.joint_tail_bwd.argtypes = [ptr] * 11 + [ints] * 8 \
                 + [ctypes.c_float, ints, ptr]
@@ -219,21 +235,36 @@ def _library(name: str = "joint_tail") -> ctypes.CDLL:
     return lib
 
 
-K6_ATTRS = ("numRegs", "localSizeBytes", "sharedSizeBytes",
-            "maxThreadsPerBlock", "dynamicSharedBytes", "blocksPerSM")
+KERNEL_ATTRS = ("numRegs", "localSizeBytes", "sharedSizeBytes",
+                "maxThreadsPerBlock", "dynamicSharedBytes", "blocksPerSM")
 
 
 @functools.lru_cache(maxsize=None)
-def _k6_attrs(device: int, act: str, Vp: int) -> Tuple[int, ...]:
-    lib = _library("joint_tail_bwd")
-    out = (ctypes.c_int * len(K6_ATTRS))()
+def _attrs(name: str, device: int, act: str, Kp: int, Vp: int
+           ) -> Tuple[int, ...]:
+    lib = _library(name)
+    out = (ctypes.c_int * len(KERNEL_ATTRS))()
     with torch.cuda.device(device):
-        err = lib.joint_tail_bwd_attrs(ACTS.index(act), Vp,
-                                       ctypes.addressof(out))
+        if name == "joint_tail":
+            err = lib.joint_tail_fwd_attrs(ACTS.index(act), Kp, Vp,
+                                           ctypes.addressof(out))
+        else:
+            err = lib.joint_tail_bwd_attrs(ACTS.index(act), Vp,
+                                           ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"joint_tail_bwd_attrs: CUDA error {err} "
+        raise RuntimeError(f"{name}_attrs: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
     return tuple(out)
+
+
+def k5_attributes(device, act: str = "relu", Vp: int = V_TILE,
+                  Kp: int = MAX_K) -> dict:
+    """K5's kernel for ``act`` on the card, as :func:`k6_attributes` gives
+    K6's, with its dynamic shared bytes and blocks an SM at ``Kp`` and
+    ``Vp``."""
+    dev = torch.device(device)
+    return dict(zip(KERNEL_ATTRS,
+                    _attrs("joint_tail", dev.index or 0, act, Kp, Vp)))
 
 
 def k6_attributes(device, act: str = "relu", Vp: int = V_TILE) -> dict:
@@ -242,7 +273,8 @@ def k6_attributes(device, act: str = "relu", Vp: int = V_TILE) -> dict:
     block), its dynamic shared bytes at ``Vp`` and the blocks an SM holds
     there (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     dev = torch.device(device)
-    return dict(zip(K6_ATTRS, _k6_attrs(dev.index or 0, act, Vp)))
+    return dict(zip(KERNEL_ATTRS, _attrs("joint_tail_bwd", dev.index or 0,
+                                         act, MAX_K, Vp)))
 
 
 def _on_card(fn: str, tensors) -> bool:
@@ -262,13 +294,26 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _padded_bf16(x: torch.Tensor, Kp: int) -> torch.Tensor:
+    """``x (B, N, K)`` as bf16 with K zero-padded to ``Kp``: ``x`` itself
+    when it already is such a tensor, contiguous and 16-byte aligned, else a
+    fresh copy."""
+    if (x.shape[-1] == Kp and x.dtype == torch.bfloat16 and x.is_contiguous()
+            and x.data_ptr() % 16 == 0):
+        return x
+    out = torch.zeros(x.shape[:-1] + (Kp,), dtype=torch.bfloat16,
+                      device=x.device)
+    out[..., :x.shape[-1]] = x
+    return out
+
+
 def _card_operands(fn: str, fp, gp, w2, b2, lab, act, mxu_dtype,
                    k_tile: int = K_TILE):
     """Checks the card's contract and lays the operands out for the
-    kernels, each in a fresh contiguous (so 16-byte aligned) tensor:
-    ``fp``, ``gp`` in bf16 with K zero-padded to ``Kp``, a multiple of
-    ``k_tile``; ``W2`` in bf16, zero-padded, as ``(Vp, Kp)``; ``b2`` fp32;
-    ``lab`` int32."""
+    kernels, each contiguous and 16-byte aligned: ``fp``, ``gp`` in bf16
+    with K zero-padded to ``Kp``, a multiple of ``k_tile`` (passed through
+    when they already are so); ``W2`` in bf16, zero-padded, as ``(Vp,
+    Kp)``; ``b2`` fp32; ``lab`` int32."""
     if mxu_dtype != "bfloat16":
         raise ValueError(f"{fn}: the card's kernels take bf16 products, "
                          f"got mxu_dtype={mxu_dtype!r}")
@@ -288,15 +333,11 @@ def _card_operands(fn: str, fp, gp, w2, b2, lab, act, mxu_dtype,
                          f"be non-empty with K <= {MAX_K} and U+1 <= "
                          f"{MAX_U1}")
     Kp, Vp = _round_up(K, k_tile), _round_up(V, V_TILE)
-    bf = dict(dtype=torch.bfloat16, device=fp.device)
-    fp_p = torch.zeros((B, T, Kp), **bf)
-    fp_p[..., :K] = fp
-    gp_p = torch.zeros((B, U1, Kp), **bf)
-    gp_p[..., :K] = gp
-    w2v = torch.zeros((Vp, Kp), **bf)
+    w2v = torch.zeros((Vp, Kp), dtype=torch.bfloat16, device=fp.device)
     w2v[:V, :K] = w2.t()
-    return (fp_p, gp_p, w2v, b2.float().contiguous(),
-            lab.to(torch.int32).contiguous(), (B, T, U1, K, V, Kp, Vp))
+    return (_padded_bf16(fp, Kp), _padded_bf16(gp, Kp), w2v,
+            b2.float().contiguous(), lab.to(torch.int32).contiguous(),
+            (B, T, U1, K, V, Kp, Vp))
 
 
 def _raise_launch(lib, fn: str, err: int, dims) -> None:

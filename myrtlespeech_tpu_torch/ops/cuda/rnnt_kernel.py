@@ -8,21 +8,23 @@ K3 replaces ``myrtlespeech_tpu/ops/pallas/rnnt_kernel.py::_fwd_kernel`` (its
 built by ``ops/cuda/build.py`` and bound with ``ctypes``.
 
 What bounds them on the card: the bytes (each lattice cell is read once or
-twice and written once, a few dozen flops of scan work on it), and in
-practice the serial chain of T rows.  What the design does about it: rows of
-the batch are independent, so one block per row carries its lattice row
-through all T steps inside the kernel (one launch, no grid barrier), one
-thread per column u, each row solved by the TPU kernel's Hillis-Steele scan
-(``_linrec_scan``) in shared memory.  The pad-invariant rewrite
-(``_pad_invariant``) is applied as the inputs are loaded, and the backward's
-masking (``_vjp_bwd:272-281``) as the gradients are stored.  The TPU
-kernel's 8-row slabs, batch padding and ``(B, U+1)`` broadcast of ``ll``
+twice and written once, a few flops on it), and in practice each row's
+serial chain.  What the design does about it: rows of the batch are
+independent, so one block per row carries its lattice row through the whole
+lattice inside the kernel (one launch, no grid barrier), one thread per
+column u.  K3 walks the row by anti-diagonals ``t + u``, one logaddexp, one
+shuffle and one barrier each (``T + U`` of them), which sums alpha in
+another order than the TPU kernel's scan; K4 solves each row by that scan
+(``_linrec_scan``, Hillis-Steele) in shared memory.  The pad-invariant
+rewrite (``_pad_invariant``) is applied as the inputs are loaded, and the
+backward's masking (``_vjp_bwd:272-281``) as the gradients are stored.  The
+TPU kernel's 8-row slabs, batch padding and ``(B, U+1)`` broadcast of ``ll``
 (Mosaic workarounds) are not carried over.
 
 :func:`rnnt_lattice_fwd` and :func:`rnnt_lattice_bwd` take CUDA tensors to
 the kernels and CPU tensors to :func:`rnnt_lattice_fwd_reference` and
-:func:`rnnt_lattice_bwd_reference`, which follow the kernels step by step in
-fp32.  There is no fallback from a kernel to its plain version.
+:func:`rnnt_lattice_bwd_reference`, which follow the TPU kernel's scan in
+fp32 (or in float64, for measuring the kernels' rounding).  There is no fallback from a kernel to its plain version.
 :func:`rnnt_lattice` is the differentiable per-example log-likelihood.
 """
 
@@ -83,18 +85,19 @@ def pad_invariant(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
 
 def rnnt_lattice_fwd_reference(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
                                logit_lens: torch.Tensor,
-                               label_lens: torch.Tensor
+                               label_lens: torch.Tensor,
+                               dtype: torch.dtype = torch.float32
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3.
 
     ``lp_blank, lp_emit (B, T, U+1)`` fp32, ``logit_lens, label_lens (B,)``
-    int.  Returns ``(alphas (T, B, U+1), ll (B,))`` fp32.
+    int.  Returns ``(alphas (T, B, U+1), ll (B,))`` in ``dtype`` (fp32, as
+    the kernel; float64 gives the yardstick of both's rounding).
     """
     B, T, U1 = lp_blank.shape
-    lpb, lpe = pad_invariant(lp_blank.float(), lp_emit.float(), logit_lens,
-                             label_lens)
-    alphas = torch.empty((T, B, U1), dtype=torch.float32,
-                         device=lp_blank.device)
+    lpb, lpe = pad_invariant(lp_blank.to(dtype), lp_emit.to(dtype),
+                             logit_lens, label_lens)
+    alphas = torch.empty((T, B, U1), dtype=dtype, device=lp_blank.device)
     u0 = torch.arange(U1, device=lp_blank.device)[None, :] == 0
     alpha = linrec_scan(torch.where(u0, 0.0, NEG_INF),
                         _shift(lpe[:, 0], 1, 0.0, False))
@@ -113,27 +116,29 @@ def rnnt_lattice_fwd_reference(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
 def rnnt_lattice_bwd_reference(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
                                logit_lens: torch.Tensor,
                                label_lens: torch.Tensor, alphas: torch.Tensor,
-                               ll: torch.Tensor, g: torch.Tensor
+                               ll: torch.Tensor, g: torch.Tensor,
+                               dtype: torch.dtype = torch.float32
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K4.
 
     Inputs as :func:`rnnt_lattice_fwd_reference`, its outputs ``alphas`` and
     ``ll``, and ``g (B,)`` the cotangent of ``ll``.  Returns ``(gblank,
-    gemit)``, both ``(B, T, U+1)`` fp32: the occupancies
+    gemit)``, both ``(B, T, U+1)`` in ``dtype``: the occupancies
     ``exp(alpha + lp + beta - ll) * g`` of the blank and emit edges, 0 at
     padded frames, a NaN emit occupancy 0.
     """
     B, T, U1 = lp_blank.shape
     dev = lp_blank.device
-    lpb, lpe = pad_invariant(lp_blank.float(), lp_emit.float(), logit_lens,
-                             label_lens)
+    lpb, lpe = pad_invariant(lp_blank.to(dtype), lp_emit.to(dtype),
+                             logit_lens, label_lens)
+    alphas = alphas.to(dtype)
     u_iota = torch.arange(U1, device=dev)[None, :]
     beta_next = torch.where(u_iota == label_lens.to(dev)[:, None], 0.0,
                             NEG_INF)
-    logz = ll.float()[:, None]
-    gs = g.float()[:, None]
-    gblank = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
-    gemit = torch.empty((B, T, U1), dtype=torch.float32, device=dev)
+    logz = ll.to(dtype)[:, None]
+    gs = g.to(dtype)[:, None]
+    gblank = torch.empty((B, T, U1), dtype=dtype, device=dev)
+    gemit = torch.empty((B, T, U1), dtype=dtype, device=dev)
     for t in reversed(range(T)):
         blank, emit, alpha = lpb[:, t], lpe[:, t], alphas[t]
         gb = torch.exp(alpha + blank + beta_next - logz) * gs

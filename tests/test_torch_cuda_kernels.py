@@ -278,34 +278,104 @@ def _lattice_inputs(B, T, U1, seed, dev):
     return [torch.from_numpy(a).to(dev) for a in (lpb, lpe, fl, ul)]
 
 
+def _logit_lattice_inputs(B, T, U1, seed, dev):
+    """Blank and emit log-probs of random joint logits (V=29), as the train
+    step makes them, with ragged lengths (the first row full)."""
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(
+        rng.standard_normal((B, T, U1, 29)).astype(np.float32))
+    lp = torch.log_softmax(logits, dim=-1)
+    labels = torch.from_numpy(rng.integers(1, 28, (B, U1)))
+    lpb = lp[..., 0].contiguous()
+    lpe = torch.gather(lp, 3, labels[:, None, :, None].expand(
+        B, T, U1, 1))[..., 0].contiguous()
+    fl = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    ul = rng.integers((U1 - 1) // 2, U1, B).astype(np.int32)
+    fl[0], ul[0] = T, U1 - 1
+    return [x.to(dev) for x in (lpb, lpe, torch.from_numpy(fl),
+                                torch.from_numpy(ul))]
+
+
+# K3 walks the lattice by anti-diagonals, the plain version by the TPU
+# kernel's scan: the same fp32 recursion summed in another order, and CUDA's
+# expf/log1pf against the library's, compounded over the lattice: 1e-5
+# relative on log-likelihoods.  K4 takes the same alphas and ll as its plain
+# version, whose scan it follows in the same order: 1e-5 absolute on
+# occupancies in [0, 1.5].
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,U1", [(3, 7, 5), (9, 1, 3), (32, 251, 65),
-                                    (2, 20, 193), (1, 3, 1)])
-def test_k3_k4_match_plain_versions(B, T, U1):
+                                    (2, 20, 193), (1, 3, 1), (3, 1, 1024),
+                                    (2, 40, 1024), (4, 9, 33), (3, 70, 32),
+                                    # the most warps with rows in shared
+                                    # memory, and one more
+                                    (2, 30, 896), (2, 30, 897)])
+def test_k3_matches_plain_version(B, T, U1):
     dev = _card()
     lpb, lpe, fl, ul = _lattice_inputs(B, T, U1, seed=B + T, dev=dev)
-    before = (port_k34.rnnt_lattice_fwd.launches,
-              port_k34.rnnt_lattice_bwd.launches)
+    before = port_k34.rnnt_lattice_fwd.launches
     alphas, ll = port_k34.rnnt_lattice_fwd(lpb, lpe, fl, ul)
-    g = torch.linspace(0.5, 1.5, B, device=dev)
-    gb, ge = port_k34.rnnt_lattice_bwd(lpb, lpe, fl, ul, alphas, ll, g)
     torch.cuda.synchronize()
-    assert (port_k34.rnnt_lattice_fwd.launches,
-            port_k34.rnnt_lattice_bwd.launches) == (before[0] + 1,
-                                                    before[1] + 1)
+    assert port_k34.rnnt_lattice_fwd.launches == before + 1
     a_ref, ll_ref = port_k34.rnnt_lattice_fwd_reference(lpb, lpe, fl, ul)
-    gb_ref, ge_ref = port_k34.rnnt_lattice_bwd_reference(
-        lpb, lpe, fl, ul, a_ref, ll_ref, g)
-    # The same fp32 recursion on both sides; CUDA's expf/log1pf and the
-    # library's differ by an ulp or two, compounded over T rows: 1e-5
-    # relative on log-likelihoods, 1e-5 absolute on occupancies in [0, 1.5].
     reachable = a_ref > -1e29
     torch.testing.assert_close(alphas[reachable], a_ref[reachable],
                                rtol=1e-5, atol=1e-4)
     assert (alphas[~reachable] < -1e29).all()
     torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1", [(3, 7, 5), (9, 1, 3), (32, 251, 65),
+                                    (2, 20, 193), (1, 3, 1)])
+def test_k4_matches_plain_version_on_the_same_inputs(B, T, U1):
+    dev = _card()
+    lpb, lpe, fl, ul = _lattice_inputs(B, T, U1, seed=B + T, dev=dev)
+    alphas, ll = port_k34.rnnt_lattice_fwd(lpb, lpe, fl, ul)
+    g = torch.linspace(0.5, 1.5, B, device=dev)
+    before = port_k34.rnnt_lattice_bwd.launches
+    gb, ge = port_k34.rnnt_lattice_bwd(lpb, lpe, fl, ul, alphas, ll, g)
+    torch.cuda.synchronize()
+    assert port_k34.rnnt_lattice_bwd.launches == before + 1
+    gb_ref, ge_ref = port_k34.rnnt_lattice_bwd_reference(
+        lpb, lpe, fl, ul, alphas, ll, g)
     torch.testing.assert_close(gb, gb_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(ge, ge_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1", [(32, 251, 65), (2, 40, 1024)])
+def test_k3_is_deterministic(B, T, U1):
+    dev = _card()
+    args = _lattice_inputs(B, T, U1, seed=5, dev=dev)
+    runs = [port_k34.rnnt_lattice_fwd(*args) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k3_k4_chain_errs_within_three_times_the_plain_chain():
+    # The kernels' chain (K3, then K4 on its alphas) and the fp32 plain
+    # chain, each against a float64 run of the plain chain, at 8 rows of the
+    # 15 s lattice: the kernels may err by at most 3x the plain chain on ll
+    # and on each occupancy.
+    dev = _card()
+    args = _logit_lattice_inputs(8, 751, 193, seed=31, dev=dev)
+    g = torch.full((8,), 1 / 32, device=dev)
+    f64 = torch.float64
+    a64, ll64 = port_k34.rnnt_lattice_fwd_reference(*args, dtype=f64)
+    occ64 = port_k34.rnnt_lattice_bwd_reference(*args, a64, ll64, g,
+                                                dtype=f64)
+
+    def errs(fwd, occ):
+        return [(fwd[1].double() - ll64).abs().max().item()] + [
+            (o.double() - w).abs().max().item() for o, w in zip(occ, occ64)]
+
+    kf = port_k34.rnnt_lattice_fwd(*args)
+    kernels = errs(kf, port_k34.rnnt_lattice_bwd(*args, *kf, g))
+    pf = port_k34.rnnt_lattice_fwd_reference(*args)
+    plain = errs(pf, port_k34.rnnt_lattice_bwd_reference(*args, *pf, g))
+    for name, k, p in zip(("ll", "gblank", "gemit"), kernels, plain):
+        assert k <= 3 * p, (name, kernels, plain)
 
 
 @pytest.mark.cuda
@@ -342,7 +412,7 @@ def test_lstm_scan_gradients_on_the_card_match_the_cpu(reverse):
 
 # K5 against its plain version: the same bf16 h and fp32 sums in another
 # order (mma tiles; an online log-sum-exp over 32-column chunks): 1e-5 of
-# the outputs' magnitude (5.5e-7 read on an H100).  K6 rounds dlogits to
+# the outputs' magnitude (5.5e-7 read on an H100 by the kernel it replaced).  K6 rounds dlogits to
 # bf16 as the plain version does, but a sum taken in another order can land
 # one element on the neighbouring bf16 value (2^-8 of it) before the
 # products, and dfp and dgp come back in bf16, where one rounding step is up
@@ -389,6 +459,40 @@ def test_k5_k6_match_plain_versions(B, T, U1, K, V, act):
     for name, got, want in zip(("dfp", "dgp", "dw2", "db2"), bwd, bwd_ref):
         assert got.shape == want.shape and got.dtype == want.dtype, name
         _close_to_scale(got.float(), want.float(), K6_TOL, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1,K,V,act", [
+    # T one frame, under and over K5's 32-frame t-tile; U+1 one u, one past
+    # a round of the 8 warps' 2-u groups, a round exactly, and 1024.
+    (1, 1, 1, 64, 29, "relu"), (2, 31, 17, 512, 29, "relu"),
+    (2, 33, 16, 512, 29, "hardtanh"), (1, 40, 1024, 512, 29, "identity"),
+    # Kp under 512; V over one 32-column chunk.
+    (2, 64, 15, 448, 29, "identity"), (2, 35, 33, 512, 33, "relu"),
+    (2, 20, 9, 128, 64, "hardtanh"), (1, 70, 300, 320, 29, "relu"),
+    (2, 45, 41, 512, 130, "identity")])
+def test_k5_matches_plain_version_at_the_tile_edges(B, T, U1, K, V, act):
+    dev = _card()
+    fp, gp, w2, b2, lab, _, _ = _joint_tail_inputs(B, T, U1, K, V, 7, dev)
+    cfg = (0, act, 20.0, "bfloat16")
+    before = port_k56.joint_tail_fwd.launches
+    got = port_k56.joint_tail_fwd(fp, gp, w2, b2, lab, *cfg)
+    torch.cuda.synchronize()
+    assert port_k56.joint_tail_fwd.launches == before + 1
+    want = port_k56.joint_tail_fwd_reference(fp, gp, w2, b2, lab, *cfg)
+    for name, g, w in zip(("lp_blank", "lp_emit"), got, want):
+        assert g.shape == w.shape == (B, T, U1)
+        _close_to_scale(g, w, K5_TOL, name)
+
+
+@pytest.mark.cuda
+def test_k5_does_not_spill():
+    dev = _card()
+    for act in port_k56.ACTS:
+        for vp in (32, 1024):
+            attrs = port_k56.k5_attributes(dev, act, vp)
+            assert attrs["localSizeBytes"] == 0, (act, vp, attrs)
+            assert attrs["blocksPerSM"] >= 1
 
 
 @pytest.mark.cuda

@@ -185,3 +185,38 @@ def test_k6_scratch_at_the_long_shape_is_under_half_a_gigabyte():
     # B=128 x 16.7 s: T'=836, U+1=215, K=512, V=29 (Vp=32), on 132 SMs.
     n_split, _ = port_jk.k6_plan(128, 836, 215, 512, 132)
     assert port_jk.k6_scratch_bytes(128, 215, 512, 32, n_split) <= 0.5e9
+
+
+def test_k5_shared_wavefronts_fall_with_the_u_group():
+    # K5's default (2 u a warp over 32 frames): 20 wavefronts for 16
+    # products; one u over 16 frames, as the kernel it replaced, 3.5.
+    assert port_jk.k5_shared_wavefronts() == 1.25
+    assert port_jk.k5_shared_wavefronts(1, 16) == 3.5
+    per_group = [port_jk.k5_shared_wavefronts(ug) for ug in (1, 2, 4, 8)]
+    assert per_group == sorted(per_group, reverse=True)
+
+
+@pytest.mark.parametrize("K,k_tile,passed", [
+    (512, port_jk.K_TILE, True), (128, port_jk.K_TILE, True),
+    (500, port_jk.K_TILE, False), (192, port_jk.MAX_K, False),
+    (512, port_jk.MAX_K, True)])
+def test_card_operands_pass_laid_out_projections_through(K, k_tile, passed):
+    a = _case(2, 5, 3, K, 29, seed=4)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    fp, gp = t["fp"].to(torch.bfloat16), t["gp"].to(torch.bfloat16)
+    lab = torch.nn.functional.pad(t["labels"], (0, 1))  # (B, U+1)
+    rest = (t["w2"], t["b2"], lab, "relu", "bfloat16", k_tile)
+    got = port_jk._card_operands("joint_tail_fwd", fp, gp, *rest)
+    # The same values through the copying route: fp32 projections.
+    padded = port_jk._card_operands("joint_tail_fwd", fp.float(), gp.float(),
+                                    *rest)
+    Kp = got[-1][5]
+    assert Kp == -(-K // k_tile) * k_tile
+    for mine, src, ref in zip(got[:2], (fp, gp), padded[:2]):
+        assert (mine.data_ptr() == src.data_ptr()) == passed
+        assert mine.dtype == torch.bfloat16 and mine.is_contiguous()
+        assert mine.shape[-1] == Kp and mine.data_ptr() % 16 == 0
+        assert torch.equal(mine, ref)
+        assert not mine[..., K:].any()
+    for mine, ref in zip(got[2:5], padded[2:5]):
+        assert torch.equal(mine, ref)

@@ -78,6 +78,96 @@ def test_plain_k3_k4_match_pallas_lattice(B, T, U1):
                                rtol=LATTICE_TOL, atol=LATTICE_TOL)
 
 
+# K3 on the card walks each row by anti-diagonals d = t + u, which sums alpha
+# in another order than the plain version's scan.  This float32 model of
+# that order (used only here; the kernel itself is held to the plain
+# version on the card) lets the CPU check the order against the JAX
+# package, and its rounding against a float64 run, within K3's tolerances
+# on the card: 1e-5 relative, 1e-3 absolute.
+K3_RTOL, K3_ATOL = 1e-5, 1e-3
+
+
+def _wavefront_lattice_fwd(lpb, lpe, fl, ul):
+    """K3's order in float32: on diagonal d, thread u takes ``up`` =
+    alpha[t-1, u] + blank[t-1, u] from its own register and alpha[t, u-1] +
+    emit[t, u-1] from lane u-1, t = d - u; ``(alphas (T, B, U+1), ll)``."""
+    B, T, U1 = lpb.shape
+    lpb, lpe = port_k.pad_invariant(lpb.float(), lpe.float(), fl, ul)
+    u = torch.arange(U1)
+    alphas = torch.empty((T, B, U1))
+    up = torch.full((B, U1), port_k.NEG_INF)
+    up[:, 0] = 0.0
+    send = torch.full((B, U1), port_k.NEG_INF)
+    for d in range(T + U1 - 1):
+        t = d - u
+        on = (t >= 0) & (t < T)
+        tc = t.clamp(0, T - 1)
+        left = torch.cat([torch.full((B, 1), port_k.NEG_INF), send[:, :-1]],
+                         dim=1)
+        a = torch.logaddexp(up, left)
+        alphas[tc[on], :, u[on]] = a[:, on].T
+        send = torch.where(on, a + lpe[:, tc, u], send)
+        up = torch.where(on, a + lpb[:, tc, u], up)
+    ulen = ul.long()
+    inside = (ulen >= 0) & (ulen < U1)
+    picked = torch.gather(up, 1, ulen.clamp(0, U1 - 1)[:, None])[:, 0]
+    return alphas, torch.where(inside, picked, 0.0)
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 5, 4), (9, 4, 6), (2, 1, 3),
+                                    (4, 17, 9), (1, 3, 1)])
+def test_wavefront_order_matches_pallas_lattice(B, T, U1):
+    lpb, lpe, fl, ul, _ = _lattice_case(B, T, U1, seed=B + T)
+    with pltpu.force_tpu_interpret_mode():
+        ll_j, (_, _, alphas_j, _, _) = jax_k._lattice_fwd_impl(
+            jnp.asarray(lpb), jnp.asarray(lpe), jnp.asarray(fl),
+            jnp.asarray(ul))
+    alphas, ll = _wavefront_lattice_fwd(
+        *(torch.from_numpy(a) for a in (lpb, lpe, fl, ul)))
+    want = np.asarray(alphas_j)[:, :B]
+    reach = want > -1e29
+    assert (alphas.numpy()[~reach] < -1e29).all()
+    np.testing.assert_allclose(alphas.numpy()[reach], want[reach],
+                               rtol=K3_RTOL, atol=K3_ATOL)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(ll_j)[:B],
+                               rtol=K3_RTOL, atol=K3_ATOL)
+
+
+@pytest.mark.parametrize("B,T,U1,seed", [(4, 200, 60, 5), (2, 251, 65, 7)])
+def test_wavefront_alphas_lie_no_farther_from_float64_than_the_scan(
+        B, T, U1, seed):
+    lpb, lpe, fl, ul, _ = _lattice_case(B, T, U1, seed=seed)
+    args = [torch.from_numpy(a) for a in (lpb, lpe, fl, ul)]
+    a64, ll64 = port_k.rnnt_lattice_fwd_reference(*args, dtype=torch.float64)
+    assert a64.dtype == ll64.dtype == torch.float64
+    reach = a64 > -1e29
+    errs = {}
+    for name, (alphas, ll) in (("wavefront", _wavefront_lattice_fwd(*args)),
+                               ("scan", port_k.rnnt_lattice_fwd_reference(
+                                   *args))):
+        assert alphas.dtype == torch.float32
+        assert ((alphas < -1e29) == ~reach).all()
+        errs[name] = (alphas.double() - a64)[reach].abs().max().item()
+        np.testing.assert_allclose(ll.numpy(), ll64.numpy(), rtol=K3_RTOL,
+                                   atol=K3_ATOL)
+    assert errs["wavefront"] <= 1.5 * errs["scan"], errs
+
+
+def test_plain_k4_in_float64_matches_fp32():
+    lpb, lpe, fl, ul, g = _lattice_case(4, 9, 6, seed=3)
+    args = [torch.from_numpy(a) for a in (lpb, lpe, fl, ul)]
+    g = torch.from_numpy(g)
+    fwd32 = port_k.rnnt_lattice_fwd_reference(*args)
+    fwd64 = port_k.rnnt_lattice_fwd_reference(*args, dtype=torch.float64)
+    occ32 = port_k.rnnt_lattice_bwd_reference(*args, *fwd32, g)
+    occ64 = port_k.rnnt_lattice_bwd_reference(*args, *fwd64, g,
+                                              dtype=torch.float64)
+    for x32, x64 in zip(occ32, occ64):
+        assert x32.dtype == torch.float32 and x64.dtype == torch.float64
+        np.testing.assert_allclose(x32.numpy(), x64.numpy(),
+                                   rtol=LATTICE_TOL, atol=LATTICE_TOL)
+
+
 def test_plain_k4_gradients_are_the_lattice_occupancies():
     """K4's analytic gradients equal autograd through the plain lax-style
     recursion of ``rnnt_log_likelihood_from_blank_emit``."""
