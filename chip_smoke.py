@@ -25,7 +25,8 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
 5. k34       K3 and K4 (the transducer lattice forward and backward) against
              their plain versions on the 5 s (B=32, T'=251, U+1=65), 15 s
              (T'=751, U+1=193) and long-step (B=128, T'=836, U+1=215)
-             lattices, K4's plain version on K3's own alphas and ll: errors,
+             lattices, K4 and its plain version on K3's own alphas and ll,
+             and both against a float64 run of the plain K4 there: errors,
              times and bounds (no single library call computes the lattice,
              so no yardstick); at the 15 s lattice and the long lattice's
              first 8 rows, the K3-then-K4 chain's and the fp32 plain chain's
@@ -82,7 +83,8 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              backward) against their plain versions on the DeepSpeech2
              step's lattice (B=32, T'=836, S=429), a small one with an empty
              target and the blank last, and one with U=700 (S=1401, above a
-             block's 1,024 threads): errors, kernel and plain times, bounds,
+             block's 1,024 threads): errors (K8 bit-equal to its plain
+             version on the same inputs), kernel and plain times, bounds,
              and PyTorch's ``F.ctc_loss`` forward and backward against the
              port's whole CTC loss on the same logits.
     After ``train_long``, ``train_ctc``: ``deep_speech_2_en`` at full width
@@ -172,12 +174,23 @@ K2_OUTPUTS = ("dz", "dh0", "dc0")
 # compounded along the lattice: 1e-5 of the magnitude (plus 1e-3 absolute) for
 # alphas and the log-likelihood (some 10^3 at the 15 s shape; K3 read 2.9e-6
 # of the magnitude at the long lattice on an H100: PERF.md section 6).  K4
-# against its plain version on the same alphas and ll: the same scan in the
-# same order, 1e-4 absolute for the occupancy gradients (in [0, 1]).  The
-# K3-then-K4 chain against a float64 run of the plain chain may err by at
-# most CHAIN_RATIO times the fp32 plain chain's, on ll and each occupancy.
+# walks the same anti-diagonals from the end, so it sums beta in another
+# order than its plain version's scan too, and the two no longer agree bit
+# for bit on the same alphas and ll.  Every K4 check holds it, on the same
+# alphas and ll, against a float64 run of the plain K4: its error there may
+# be at most CHAIN_RATIO times the fp32 plain K4's, on each occupancy.
+# On an H100 K4 read 0.25-0.52 of the plain K4's error there (all sites).
+# Where it still holds, K4 also stays within 1e-4 absolute of the plain K4
+# (occupancies in [0, 1/B] at g = 1/B): it read 2.1e-5 at the 5 s lattice,
+# 6.2e-5 at the long one, 1.8e-5 and 3.2e-5 on the flagship and long steps'
+# own calls.  At the 15 s lattice it read 1.75e-4 (a float32 model of the
+# two orders on the CPU, port_tools/lattice_order_model.py: 1.7e-4), so
+# there the float64 check alone holds K4 (PERF.md section 6).  The K3-then-K4 chain against a float64 run of
+# the plain chain may err by at most CHAIN_RATIO times the fp32 plain
+# chain's, on ll and each occupancy.
 K3_RTOL, K3_ATOL, K4_ATOL = 1e-5, 1e-3, 1e-4
 CHAIN_RATIO = 3.0
+K4_DIRECT_SHAPES = ("5s", "long")
 
 # The JAX package's eval-mode transducer loss (mean over the 256-utterance
 # eval split of configs/synthetic_medium_rnnt.py, batches of 32, full joint)
@@ -524,11 +537,6 @@ def k2_work(T: int, B: int, H: int, need_dh0: bool = False):
     return flops, nbytes
 
 
-def lattice_passes(U1: int) -> int:
-    """Hillis-Steele passes of one lattice row."""
-    return max(0, (U1 - 1).bit_length())
-
-
 def k3_work(B: int, T: int, U1: int):
     """(fp32 operations, bytes) of one K3 call: the function's own work, one
     logaddexp (max, difference, |.|, exp, log1p, add) and two additions
@@ -541,11 +549,13 @@ def k3_work(B: int, T: int, U1: int):
 
 
 def k4_work(B: int, T: int, U1: int):
-    """(fp32 operations, bytes) of one K4 call: K3's scan work plus two
-    exponentials and some 8 additions per cell, and the bytes that must move
+    """(fp32 operations, bytes) of one K4 call: the function's own work,
+    whatever order computes it: for beta one logaddexp and two additions
+    per cell (as K3's alpha), for the two occupancies two exponentials and
+    some 8 additions and multiplications; and the bytes that must move
     (log-probs, alphas, lengths, ll and g read once; the two occupancy
     tensors written once)."""
-    flops = 8.0 * B * T * U1 * lattice_passes(U1) + 10.0 * B * T * U1
+    flops = (8.0 + 2.0 + 8.0) * B * T * U1
     nbytes = 5 * B * T * U1 * 4 + 2 * B * 4 + 2 * B * 4
     return flops, nbytes
 
@@ -714,11 +724,34 @@ def _lattice_case(B, T, U1, seed, dev):
             torch.from_numpy(ul).to(dev))
 
 
-def lattice_errors(fwd, bwd, fwd_ref, bwd_ref, label: str):
+def k4_vs_float64(k4_args, bwd, bwd_ref):
+    """K4 (``bwd``) and its fp32 plain version (``bwd_ref``), both fed
+    ``k4_args`` (K3's alphas and ll among them), each against a float64 run
+    of the plain version on the same inputs: for each occupancy the largest
+    |error| of each and the kernel's over the plain version's."""
+    from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as k
+
+    occ64 = k.rnnt_lattice_bwd_reference(*k4_args, dtype=torch.float64)
+    out = {}
+    for name, got, ref, want in zip(("gblank", "gemit"), bwd, bwd_ref, occ64):
+        ek = (got.double() - want).abs().max().item()
+        ep = (ref.double() - want).abs().max().item()
+        out[name] = {"kernel": ek, "plain": ep,
+                     "ratio": ek / ep if ep > 0 else
+                     (0.0 if ek == 0 else float("inf"))}
+    return out
+
+
+def lattice_errors(fwd, bwd, fwd_ref, bwd_ref, k4_args, label: str,
+                   k4_direct: bool = True):
     """Largest errors of K3 (alphas of reachable cells, ll) against its plain
     version and of K4 (both occupancies) against its plain version on the
-    same inputs: ``bwd_ref`` is the plain K4 fed K3's own alphas and ll, as
-    ``bwd`` is.  Raises beyond tolerance."""
+    same inputs: ``bwd_ref`` is the plain K4 fed ``k4_args``, K3's own
+    alphas and ll among them, as ``bwd`` is; and ``k4_float64``, K4's and
+    the plain K4's errors against a float64 run of the plain K4 on those
+    inputs (``k4_vs_float64``).  Raises beyond K3's tolerance, where K4
+    errs by more than CHAIN_RATIO times the plain K4 against float64, or,
+    with ``k4_direct``, beyond K4_ATOL from the plain K4."""
     alphas, ll = fwd
     a_ref, ll_ref = fwd_ref
     reach = a_ref > -1e29
@@ -726,16 +759,21 @@ def lattice_errors(fwd, bwd, fwd_ref, bwd_ref, label: str):
         "alphas": (alphas[reach] - a_ref[reach]).abs().max().item(),
         "ll": (ll - ll_ref).abs().max().item(),
         "gblank": (bwd[0] - bwd_ref[0]).abs().max().item(),
-        "gemit": (bwd[1] - bwd_ref[1]).abs().max().item()}
+        "gemit": (bwd[1] - bwd_ref[1]).abs().max().item(),
+        "k4_float64": k4_vs_float64(k4_args, bwd, bwd_ref)}
     ok = (bool((alphas[~reach] < -1e29).all())
           and torch.allclose(alphas[reach], a_ref[reach], rtol=K3_RTOL,
                              atol=K3_ATOL)
           and torch.allclose(ll, ll_ref, rtol=K3_RTOL, atol=K3_ATOL)
-          and errs["gblank"] <= K4_ATOL and errs["gemit"] <= K4_ATOL)
+          and all(e["ratio"] <= CHAIN_RATIO
+                  for e in errs["k4_float64"].values())
+          and (not k4_direct or (errs["gblank"] <= K4_ATOL
+                                 and errs["gemit"] <= K4_ATOL)))
     if not ok:
-        raise AssertionError(f"K3/K4 {label}: max |err| {errs} beyond rtol "
-                             f"{K3_RTOL} atol {K3_ATOL} (K3), atol "
-                             f"{K4_ATOL} (K4)")
+        raise AssertionError(
+            f"K3/K4 {label}: max |err| {errs} beyond rtol {K3_RTOL} atol "
+            f"{K3_ATOL} (K3), {CHAIN_RATIO}x the plain K4 against float64 "
+            f"(K4)" + (f" or atol {K4_ATOL} (K4)" if k4_direct else ""))
     return errs
 
 
@@ -791,7 +829,8 @@ def phase_k34(dev):
         torch.cuda.synchronize()
         fwd_ref = k.rnnt_lattice_fwd_reference(*args)
         bwd_ref = k.rnnt_lattice_bwd_reference(*args, *fwd, g)
-        errs = lattice_errors(fwd, bwd, fwd_ref, bwd_ref, label)
+        errs = lattice_errors(fwd, bwd, fwd_ref, bwd_ref, (*args, *fwd, g),
+                              label, k4_direct=label in K4_DIRECT_SHAPES)
         del fwd_ref, bwd_ref, bwd
         times = {
             "k3_ms": cuda_ms(lambda: k.rnnt_lattice_fwd(*args), 10),
@@ -810,7 +849,9 @@ def phase_k34(dev):
         b4, by4 = bound(*k4_work(B, T, U1), peak=PEAK_FP32_FLOPS)
         emit("k34", shape=label, B=B, T=T, U1=U1, max_abs_err=errs,
              tolerance={"k3_rtol": K3_RTOL, "k3_atol": K3_ATOL,
-                        "k4_atol": K4_ATOL, "chain_ratio": CHAIN_RATIO},
+                        "k4_atol": K4_ATOL if label in K4_DIRECT_SHAPES
+                        else None, "k4_float64_ratio": CHAIN_RATIO,
+                        "chain_ratio": CHAIN_RATIO},
              chain_vs_float64=chain, **times, library_ms=None,
              k3_bound_ms=b3, k3_bound_by=by3, k4_bound_ms=b4,
              k4_bound_by=by4)
@@ -1023,6 +1064,13 @@ def phase_k78(dev):
         fwd_ref = k.ctc_lattice_fwd_reference(lp, skip, ul)
         bwd_ref = k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd_ref, g)
         errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, label)
+        # K8 keeps its plain version's stencil and sums: bit-equal on the
+        # same inputs.
+        k8_bit_equal = torch.equal(
+            bwd, k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd, g))
+        if not k8_bit_equal:
+            raise AssertionError(f"K8 {label}: not bit-equal to its plain "
+                                 "version on the same inputs")
         lib_nll = _library_ctc(logits, fl, lab, ul, blank)
         lib_rel = ((lib_nll + fwd[1]).abs() / lib_nll.abs()).max().item()
         if not lib_rel <= CTC_LIBRARY_RTOL:
@@ -1054,7 +1102,7 @@ def phase_k78(dev):
         b8, by8 = bound(f8, n8, peak=PEAK_FP32_FLOPS)
         emit("k78", shape=label, B=B, T=T, U=U, S=S, V=V, blank=blank,
              empty_targets=int((ul == 0).sum()), max_abs_err=errs,
-             library_rel_diff=lib_rel,
+             k8_bit_equal=k8_bit_equal, library_rel_diff=lib_rel,
              tolerance={"k7_rtol": K7_RTOL, "k7_atol": K7_ATOL,
                         "k8_atol": K8_ATOL, "library_rtol": CTC_LIBRARY_RTOL},
              **times,
@@ -1697,7 +1745,8 @@ def phase_train_main_path(dev, trained):
     fwd_ref = rnnt_kernel.rnnt_lattice_fwd_reference(*k3_args)
     bwd = rnnt_kernel.rnnt_lattice_bwd(*k4_args)
     bwd_ref = rnnt_kernel.rnnt_lattice_bwd_reference(*k4_args)
-    lat_errs = lattice_errors(fwd, bwd, fwd_ref, bwd_ref, "train step")
+    lat_errs = lattice_errors(fwd, bwd, fwd_ref, bwd_ref, k4_args,
+                              "train step")
     _, k3_plain = device_trace(
         lambda: rnnt_kernel.rnnt_lattice_fwd_reference(*k3_args),
         or_events=True)
@@ -1995,7 +2044,8 @@ def phase_train_long(dev):
         rnnt_kernel.rnnt_lattice_fwd(*k3_args),
         rnnt_kernel.rnnt_lattice_bwd(*k4_args),
         rnnt_kernel.rnnt_lattice_fwd_reference(*k3_args),
-        rnnt_kernel.rnnt_lattice_bwd_reference(*k4_args), "long step")
+        rnnt_kernel.rnnt_lattice_bwd_reference(*k4_args), k4_args,
+        "long step")
     del k3_args, k4_args
     (k5_args,), (k6_args,) = calls["k5"], calls["k6"]
     del calls

@@ -38,9 +38,11 @@
 // launch, no grid barrier).  Each thread owns kCols columns s = threadIdx.x +
 // k * blockDim.x, so any S up to 16 * 1024 works; the row is double-buffered
 // in shared memory with two pads of -1e30 at the end the stencil reads from,
-// so a step is branch-free and needs one __syncthreads.  Each thread loads its
-// columns of the next row into registers before it computes the current one,
-// so the load's latency hides behind the step.  Outputs are written (B, T, S)
+// so a step is branch-free and needs one __syncthreads.  K7's threads load
+// their columns of the next row into registers before they compute the
+// current one.  K8 asks for its rows of lp and alphas several steps ahead
+// into L1 by prefetch, which nothing waits for, and exponentiates each row's
+// occupancy after the step's barrier.  Outputs are written (B, T, S)
 // directly.  The TPU kernel's 8-row slabs, batch padding, (B, S) broadcasts
 // of the lengths and logZ, and the terminal log-sum-exp hoisted out of the
 // kernel (Mosaic workarounds) are not carried over.
@@ -55,11 +57,14 @@ constexpr float kNegInf = -1e30f;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCols = 16;
 
+// The NaN case is taken by a select, not a branch: the same bits in fewer
+// instructions (port_tools/lattice_variants.py times K8 with the branch:
+// PERF.md section 6).
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
   const float d = a - b;
-  if (isnan(d)) return a + b;
-  return m + log1pf(expf(-fabsf(d)));
+  const float r = m + log1pf(expf(-fabsf(d)));
+  return isnan(d) ? a + b : r;
 }
 
 // K7.  Grid: (B); block: ceil(S / kCols) threads rounded up to a warp;
@@ -141,10 +146,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// Ask for the line holding *p in L1, without waiting for it: no register
+// takes the value, so nothing later waits for it either.
+__device__ __forceinline__ void prefetch_l1(const float* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
 // K8.  Same grid and block as K7; 2 * (S + 2) floats of dynamic shared
 // memory: two beta rows, each with two trailing pads of -1e30 for the reads
 // at s+1 and s+2.  g (B,) is the cotangent of ll; grad is (B, T, S).
-template <int kCols>
+//
+// The chain of T rows is what K8 waits on.  Loaded a row ahead into
+// registers, as K7 loads lp, lp and alphas still cost each step part of a
+// device-memory latency (PERF.md section 6).  So each thread asks for its
+// columns of lp and alphas P rows ahead into L1 by prefetch, which no
+// register and so nothing waits for, and loads a row only on the step that
+// uses it, from L1; P * kCols <= 8 keeps the rows in flight within L1.  The
+// steps are unrolled by 8 (up to 4 columns a thread), which saves the
+// double buffer's index arithmetic.  The occupancy of row t, whose exponent
+// is summed before the barrier in the plain version's order, is
+// exponentiated and stored on the next step, beside row t-1's logaddexps.
+template <int kCols, int P>
 __global__ void __launch_bounds__(kMaxThreads)
     ctc_bwd_kernel(const float* __restrict__ lp_ext,    // (B, T, S)
                    const float* __restrict__ can_skip,  // (B, S)
@@ -172,54 +194,69 @@ __global__ void __launch_bounds__(kMaxThreads)
     smem[S + threadIdx.x] = kNegInf;
     smem[W + S + threadIdx.x] = kNegInf;
   }
+  // This thread's columns of row r of lp and alphas, into L1.
+  auto prefetch_row = [&](int r) {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int s = threadIdx.x + k * n;
+      if (r >= 0 && s < S) {
+        prefetch_l1(lp + static_cast<size_t>(r) * S + s);
+        prefetch_l1(al + static_cast<size_t>(r) * S + s);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < P; ++i) prefetch_row(T - 2 - i);
   bool skip2[kCols];  // can_skip at the destination s + 2
-  float lp_cur[kCols], lp_nxt[kCols], al_cur[kCols], al_nxt[kCols];
+  float y[kCols];     // the occupancy's exponent of the row just done
   const size_t last_row = static_cast<size_t>(T - 1) * S;
 #pragma unroll
   for (int k = 0; k < kCols; ++k) {
     const int s = threadIdx.x + k * n;
     skip2[k] = s + 2 < S && can_skip[static_cast<size_t>(b) * S + s + 2] > 0.5f;
-    lp_cur[k] = s < S ? lp[last_row + s] : 0.f;
-    al_cur[k] = s < S ? al[last_row + s] : kNegInf;
-    const bool ahead = s < S && T > 1;
-    lp_nxt[k] = ahead ? lp[last_row - S + s] : 0.f;
-    al_nxt[k] = ahead ? al[last_row - S + s] : kNegInf;
+    y[k] = kNegInf;
     if (s < S) {
-      const float beta = (s == i1 || s == i0) ? lp_cur[k] : kNegInf;
+      const float lpv = lp[last_row + s];
+      const float beta = (s == i1 || s == i0) ? lpv : kNegInf;
       smem[s] = beta;
-      out[last_row + s] = expf(al_cur[k] + beta - lp_cur[k] - logz) * gb;
+      y[k] = al[last_row + s] + beta - lpv - logz;
     }
   }
   __syncthreads();
 
   int p = 0;  // the buffer that holds beta[t+1]
+  // Unrolled by 8 up to 4 columns a thread; wider, the copies of the body
+  // would spill.
+  constexpr int kStepUnroll = kCols <= 4 ? 8 : 1;
+#pragma unroll kStepUnroll
   for (int t = T - 2; t >= 0; --t) {
     const float* nb = smem + p * W;
     float* cb = smem + (p ^ 1) * W;
     const size_t row = static_cast<size_t>(t) * S;
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) {
-      const int s = threadIdx.x + k * n;
-      lp_cur[k] = lp_nxt[k];
-      al_cur[k] = al_nxt[k];
-      const bool ahead = s < S && t > 0;
-      lp_nxt[k] = ahead ? lp[row - S + s] : 0.f;
-      al_nxt[k] = ahead ? al[row - S + s] : kNegInf;
-    }
+    prefetch_row(t - P);
 #pragma unroll
     for (int k = 0; k < kCols; ++k) {
       const int s = threadIdx.x + k * n;
       if (s < S) {
+        const float lpv = lp[row + s];
+        const float alv = al[row + s];
         const float stay = nb[s];
         const float adv = nb[s + 1];
         const float skp = skip2[k] ? nb[s + 2] : kNegInf;
-        const float beta = logaddexp(logaddexp(stay, adv), skp) + lp_cur[k];
+        // Row t+1's occupancy, off the chain.
+        out[row + S + s] = expf(y[k]) * gb;
+        const float beta = logaddexp(logaddexp(stay, adv), skp) + lpv;
         cb[s] = beta;
-        out[row + s] = expf(al_cur[k] + beta - lp_cur[k] - logz) * gb;
+        y[k] = alv + beta - lpv - logz;
       }
     }
     __syncthreads();
     p ^= 1;
+  }
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const int s = threadIdx.x + k * n;
+    if (s < S) out[s] = expf(y[k]) * gb;
   }
 }
 
@@ -257,15 +294,20 @@ int launch_fwd(const float* lp_ext, const float* can_skip,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8's rows of lp and alphas asked for ahead: 8 columns of each a thread,
+// at least one row.
+constexpr int bwd_rows_ahead(int kCols) { return kCols >= 8 ? 1 : 8 / kCols; }
+
 template <int kCols>
 int launch_bwd(const float* lp_ext, const float* can_skip,
                const int* label_lens, const float* alphas, const float* ll,
                const float* g, float* grad, int B, int T, int S,
                cudaStream_t stream) {
+  constexpr int P = bwd_rows_ahead(kCols);
   const size_t smem = smem_for(S);
-  cudaError_t err = allow_smem(ctc_bwd_kernel<kCols>, smem);
+  cudaError_t err = allow_smem(ctc_bwd_kernel<kCols, P>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ctc_bwd_kernel<kCols><<<B, threads_for(S, kCols), smem, stream>>>(
+  ctc_bwd_kernel<kCols, P><<<B, threads_for(S, kCols), smem, stream>>>(
       lp_ext, can_skip, label_lens, alphas, ll, g, grad, T, S);
   return static_cast<int>(cudaGetLastError());
 }

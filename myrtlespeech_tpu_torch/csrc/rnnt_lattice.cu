@@ -36,9 +36,15 @@
 // than the TPU kernel's scan (alpha[0, u] is the running sum of emit[0, :u]
 // from the left; the plain version's scan sums in a tree), and its alphas
 // lie closer to a float64 run (PERF.md section 6).
-// K4 solves each row along u, a linear recurrence in the (logaddexp, +)
-// semiring, as the TPU kernel solves it (_linrec_scan): a Hillis-Steele scan
-// over affine maps x -> logaddexp(A, C + x), ceil(log2(U+1)) passes.
+// K4 walks the same anti-diagonals from the end, T + U steps of one
+// logaddexp, one shuffle and one barrier, and computes both occupancies of
+// a cell on its own diagonal, beside the chain; its rows of inputs come by
+// cp.async into each warp's rows of shared memory, and its occupancies go
+// out along u through the same rows.  So beta is summed in the mirror of
+// K3's order (beta[T-1, u] sums emit[T-1, u:U_b] from the right), not in
+// the TPU kernel's scan (_linrec_scan, a Hillis-Steele scan over affine
+// maps, which the plain version keeps), and alpha and beta share one order
+// again (PERF.md section 6).
 // -1e30 stands for -inf throughout, so that no -inf - -inf makes a NaN, and
 // logaddexp is max + log1pf(expf(-|a - b|)) with CUDA's precise expf and
 // log1pf (no fast math).
@@ -46,9 +52,8 @@
 // What bounds them on the card: the bytes.  Each cell is read once or twice
 // and written once, with a few flops on it; at the flagship shape (B=32,
 // T'=251, U+1=65) that is 6 MB for K3 and 10 MB for K4.  In practice each
-// row's serial chain is what the card waits on: K3's T + U diagonals, each a
-// logaddexp, a shuffle and a barrier; K4's T rows, each some 2 * log2(U+1)
-// barriers deep.
+// row's serial chain is what the card waits on: T + U diagonals, each a
+// logaddexp, a shuffle and a barrier.
 //
 // What the design does about it: rows b are independent, so one block per
 // row carries its lattice row through the whole lattice inside the kernel
@@ -63,52 +68,44 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kPrefetch = 8;  // K3's diagonals of loads in flight
+constexpr int kPrefetch = 8;  // K3's and K4's diagonals of loads in flight
 // K3's warps whose rows of blank, emit and alpha (8 KB a warp) fit in the
 // 227 KB of shared memory a block can ask for.
 constexpr int kMaxStagedWarps = 28;
+// K4's rows of blank, emit and alpha a warp: the 32 its lanes stand on and
+// room for the copies in flight ahead of them (a power of two); 24 KB a
+// warp, so 9 warps fit.
+constexpr int kRowsBwd = 64;
+constexpr int kMaxStagedWarpsBwd = 9;
 
+// The NaN case is taken by a select, not a branch: the same bits in fewer
+// instructions (port_tools/lattice_variants.py times K4 with the branch:
+// PERF.md section 6).
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(a, b);
   const float d = a - b;
-  if (isnan(d)) return a + b;
-  return m + log1pf(expf(-fabsf(d)));
+  const float r = m + log1pf(expf(-fabsf(d)));
+  return isnan(d) ? a + b : r;
 }
 
-// Solve x[u] = logaddexp(a[u], x[u-1] + c[u]) (reverse: x[u+1]) for the
-// row held one element per thread; A and C are 2 * n floats of shared
-// memory (double buffers).  Returns this thread's x[u] (u < n).
-__device__ float linrec_scan(float a, float c, float* A, float* C, int n,
-                             bool reverse) {
-  const int u = threadIdx.x;
-  int cur = 0;
-  if (u < n) {
-    A[u] = a;
-    C[u] = c;
-  }
-  __syncthreads();
-  for (int d = 1; d < n; d *= 2) {
-    float na = 0.f, nc = 0.f;
-    if (u < n) {
-      const int src = reverse ? u + d : u - d;
-      const bool in = reverse ? src < n : src >= 0;
-      const float al = in ? A[cur * n + src] : kNegInf;
-      const float cl = in ? C[cur * n + src] : 0.f;
-      const float av = A[cur * n + u];
-      const float cv = C[cur * n + u];
-      na = logaddexp(av, cv + al);
-      nc = cv + cl;
-    }
-    cur ^= 1;
-    if (u < n) {
-      A[cur * n + u] = na;
-      C[cur * n + u] = nc;
-    }
-    __syncthreads();
-  }
-  const float x = u < n ? A[cur * n + u] : kNegInf;
-  __syncthreads();  // the buffers are reused by the next call
-  return x;
+// cp.async of one float from global to shared memory, in the thread's
+// current group: no register takes it, so nothing waits for it but
+// cp.async.wait_group.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's newest groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Pad-invariant loads (see _pad_invariant).
@@ -257,26 +254,67 @@ rnnt_fwd_kernel(const float* __restrict__ lp_blank,  // (B, T, U1)
   if (u == 0 && !(ulen >= 0 && ulen < U1)) ll[b] = 0.f;
 }
 
-// K4.  Grid: (B); block: U1 rounded up to a warp; 5 * U1 floats of dynamic
-// shared memory (the scan's double buffers and beta[t] of the row).  g (B,)
-// is the cotangent of ll; gblank and gemit are (B, T, U1), the layout of the
-// inputs.
-__global__ void rnnt_bwd_kernel(const float* __restrict__ lp_blank,
-                                const float* __restrict__ lp_emit,
-                                const int* __restrict__ logit_lens,
-                                const int* __restrict__ label_lens,
-                                const float* __restrict__ alphas,  // (T,B,U1)
-                                const float* __restrict__ ll,      // (B,)
-                                const float* __restrict__ g,       // (B,)
-                                float* __restrict__ gblank,        // (B,T,U1)
-                                float* __restrict__ gemit,         // (B,T,U1)
-                                int B, int T, int U1) {
-  extern __shared__ float smem[];
-  float* A = smem;
-  float* C = smem + 2 * U1;
-  float* row = smem + 4 * U1;  // beta[t] of this row, for the shift left
+// blank[t, u], emit[t, u] and alpha[t, u] into bl, em and al when (t, u)
+// lies in the lattice; else they are left as they are.  alb is the batch
+// row's alphas, row t at t * a_stride.
+__device__ __forceinline__ void fetch_bwd_cell(
+    float& bl, float& em, float& al, const float* __restrict__ lpb,
+    const float* __restrict__ lpe, const float* __restrict__ alb,
+    size_t a_stride, int t, int u, int T, int U1, int flen, int ulen,
+    bool col) {
+  if (col && t >= 0 && t < T) {
+    bl = blank_at(lpb, t, u, U1, flen);
+    em = emit_at(lpe, t, u, U1, flen, ulen);
+    al = alb[static_cast<size_t>(t) * a_stride + u];
+  }
+}
+
+// K4, K3's wavefront walked from the end.  Grid: (B); block: U1 rounded up
+// to a warp (at most 1024 threads); 24 KB of dynamic shared memory a warp
+// when STAGED, else none.  g (B,) is the cotangent of ll; gblank and gemit
+// are (B, T, U1), the layout of the inputs.  Thread u computes beta[d - u,
+// u] on diagonal d, from d = T + U1 - 2 down to 0; its warp's lanes are on
+// 32 consecutive rows t at once, the highest column on the lowest row.
+//
+// Lane u keeps one register, beta: its last cell's beta, which is
+// beta[t+1, u] for its next cell and, read by lane u-1 through
+// __shfl_down_sync, beta[t, u+1] for lane u-1's (at a warp's edge through a
+// shared slot double-buffered by the diagonal's parity, so one barrier a
+// diagonal is enough).  Both occupancies of a cell are known on its own
+// diagonal, so their exps sit beside the chain, not on it.
+//
+// On descending diagonals the warp's last lattice column (lane 31 but in
+// the last warp) reaches a row first and lane 0 last.  STAGED, each
+// diagonal the warp copies the row its last column reaches kP diagonals on
+// by cp.async, along u (lane l its column l), into its rows of blank, emit
+// and alpha (t mod kRowsBwd), and each lane waits for its own copies only
+// when it reaches them; a cell's occupancies overwrite its blank and emit,
+// and the warp stores each row of both along u once lane 0 has written it.
+// Each lane reads and writes only its own column of the rows, so the warp
+// needs no barrier of its own.  (Loaded into registers kP diagonals ahead
+// and then stored into the rows, as K3 does, they took the long step's K4
+// to 0.62 ms against 0.40 so, on an H100 80GB HBM3 at 700 W: PERF.md
+// section 6.)  UnSTAGED (above kMaxStagedWarpsBwd warps, where the rows do
+// not fit), each lane loads its own cells kP diagonals ahead into registers
+// and stores its own occupancies.
+template <int P, bool STAGED>
+__global__ void __launch_bounds__(STAGED ? 32 * kMaxStagedWarpsBwd : 1024)
+rnnt_bwd_kernel(const float* __restrict__ lp_blank,  // (B, T, U1)
+                const float* __restrict__ lp_emit,   // (B, T, U1)
+                const int* __restrict__ logit_lens,  // (B,)
+                const int* __restrict__ label_lens,  // (B,)
+                const float* __restrict__ alphas,    // (T, B, U1)
+                const float* __restrict__ ll,        // (B,)
+                const float* __restrict__ g,         // (B,)
+                float* __restrict__ gblank,          // (B, T, U1)
+                float* __restrict__ gemit,           // (B, T, U1)
+                int B, int T, int U1) {
+  extern __shared__ float ring[];  // STAGED: (warps, 3, kRowsBwd, 32)
+  __shared__ float edge[2][32];    // lane 0's beta of each warp, by parity
+  constexpr int kR = kRowsBwd;
   const int b = blockIdx.x;
-  const int u = threadIdx.x;
+  const int u = threadIdx.x, lane = u & 31, warp = u >> 5;
+  const bool col = u < U1;
   const int flen = logit_lens[b];
   const int ulen = label_lens[b];
   const float logz = ll[b];
@@ -284,37 +322,125 @@ __global__ void rnnt_bwd_kernel(const float* __restrict__ lp_blank,
   const size_t base = static_cast<size_t>(b) * T * U1;
   const float* lpb = lp_blank + base;
   const float* lpe = lp_emit + base;
+  const float* alb = alphas + static_cast<size_t>(b) * U1;
+  const size_t a_stride = static_cast<size_t>(B) * U1;
+  float* gbo = gblank + base + u;
+  float* geo = gemit + base + u;
+  float* brow = ring + warp * 3 * kR * 32 + lane;  // blank, then gblank
+  float* erow = brow + kR * 32;                    // emit, then gemit
+  float* arow = erow + kR * 32;                    // alpha
+  // The warp's last lattice column, whose lane reaches each row first.
+  const int last = min(31, U1 - 1 - warp * 32);
+  // The row a lane loads for diagonal d is d - lag: STAGED, lane last's row
+  // for every lane; else the lane's own.
+  const int lag = warp * 32 + (STAGED ? last : lane);
+  const int D = T + U1 - 1;
 
-  float beta_next = u == ulen ? 0.f : kNegInf;  // virtual beta[T]
-  for (int t = T - 1; t >= 0; --t) {
-    float bb = kNegInf, e = kNegInf, al = kNegInf, blank = 0.f;
-    if (u < U1) {
-      blank = blank_at(lpb, t, u, U1, flen);
-      e = emit_at(lpe, t, u, U1, flen, ulen);
-      al = alphas[(static_cast<size_t>(t) * B + b) * U1 + u];
-      bb = blank + beta_next;
+  // STAGED: copy row r's cell of this lane's column into its slot.
+  auto stage = [&](int r) {
+    if (col && r >= 0 && r < T) {
+      const int at = (r & (kR - 1)) * 32;
+      cp_async4(brow + at, lpb + static_cast<size_t>(r) * U1 + u);
+      cp_async4(erow + at, lpe + static_cast<size_t>(r) * U1 + u);
+      cp_async4(arow + at, alb + static_cast<size_t>(r) * a_stride + u);
     }
-    const float beta_t = linrec_scan(bb, e, A, C, U1, true);
-    if (u < U1) row[u] = beta_t;
-    __syncthreads();
-    if (u < U1) {
-      const float beta_right = u + 1 < U1 ? row[u + 1] : kNegInf;
-      const bool pad = t >= flen;
-      const float gbk = expf(al + blank + beta_next - logz) * gb;
-      float gem = expf(al + e + beta_right - logz) * gb;
-      if (isnan(gem)) gem = 0.f;
-      const size_t at = base + static_cast<size_t>(t) * U1 + u;
-      gblank[at] = pad ? 0.f : gbk;
-      gemit[at] = pad ? 0.f : gem;
+    cp_async_commit();
+  };
+  // UnSTAGED: registers ahead of the cells; on step k (diagonal D - 1 -
+  // k), slot k mod P holds blank, emit and alpha of the lane's row D - 1 -
+  // k - lag, and is then loaded with the row P diagonals further down.
+  float pb[STAGED ? 1 : P], pe[STAGED ? 1 : P], pa[STAGED ? 1 : P];
+  if constexpr (STAGED) {
+    // The rows lane last reaches on the first P diagonals, a group each.
+#pragma unroll
+    for (int j = 0; j < P; ++j) stage(D - 1 - j - lag);
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      pb[j] = 0.f;
+      pe[j] = kNegInf;
+      pa[j] = kNegInf;
+      fetch_bwd_cell(pb[j], pe[j], pa[j], lpb, lpe, alb, a_stride,
+                     D - 1 - j - lag, u, T, U1, flen, ulen, col);
     }
-    __syncthreads();  // row is rewritten by the next step
-    beta_next = beta_t;
   }
+  if (threadIdx.x < 64) edge[threadIdx.x >> 5][lane] = kNegInf;
+  __syncthreads();
+
+  // beta[T, u]: 0 at u = ulen, else -inf (also past the lattice's columns,
+  // whose lanes lane U1 - 1 reads as beta[t, U1]).
+  float beta = (col && u == ulen) ? 0.f : kNegInf;
+  const bool last_warp = warp == (blockDim.x >> 5) - 1;
+  const bool one_warp = blockDim.x == 32;
+  for (int k0 = 0; k0 < D; k0 += P) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int k = k0 + j;
+      if (k >= D) break;
+      const int d = D - 1 - k;
+      const int t = d - u;
+      const bool cell = col && t >= 0 && t < T;
+      float bl = 0.f, em = kNegInf, al = kNegInf;  // this diagonal's cell
+      if constexpr (STAGED) {
+        // The lane copied its cell at least P - 1 groups ago (lane last
+        // exactly), pad-invariant rewrite on the way out.
+        cp_async_wait<P - 1>();
+        if (cell) {
+          const int at = (t & (kR - 1)) * 32;
+          bl = t >= flen ? 0.f : brow[at];
+          em = (t >= flen || u >= ulen) ? kNegInf : erow[at];
+          al = arow[at];
+        }
+        stage(d - P - lag);
+      } else {
+        bl = pb[j];
+        em = pe[j];
+        al = pa[j];
+        fetch_bwd_cell(pb[j], pe[j], pa[j], lpb, lpe, alb, a_stride,
+                       d - P - lag, u, T, U1, flen, ulen, col);
+      }
+      // beta[t, u+1], computed on the diagonal before.
+      float right = __shfl_down_sync(0xffffffffu, beta, 1);
+      if (lane == 31) right = last_warp ? kNegInf : edge[(d + 1) & 1][warp + 1];
+      if (cell) {
+        const float next = logaddexp(bl + beta, em + right);
+        // The occupancies, summed as the plain version sums them.
+        float gbk = expf(al + bl + beta - logz) * gb;
+        float gem = expf(al + em + right - logz) * gb;
+        if (isnan(gem)) gem = 0.f;
+        if (t >= flen) {
+          gbk = 0.f;
+          gem = 0.f;
+        }
+        if constexpr (STAGED) {
+          brow[(t & (kR - 1)) * 32] = gbk;
+          erow[(t & (kR - 1)) * 32] = gem;
+        } else {
+          gbo[static_cast<size_t>(t) * U1] = gbk;
+          geo[static_cast<size_t>(t) * U1] = gem;
+        }
+        beta = next;
+      }
+      if (lane == 0) edge[d & 1][warp] = beta;
+      if constexpr (STAGED) {
+        // Row r of the warp's occupancies is complete: lane 0 wrote it just
+        // now.
+        const int r = d - warp * 32;
+        if (col && r >= 0 && r < T) {
+          gbo[static_cast<size_t>(r) * U1] = brow[(r & (kR - 1)) * 32];
+          geo[static_cast<size_t>(r) * U1] = erow[(r & (kR - 1)) * 32];
+        }
+      }
+      // One barrier a diagonal: an edge slot is rewritten no sooner than
+      // the diagonal after the one that reads it.
+      if (one_warp) __syncwarp();
+      else __syncthreads();
+    }
+  }
+  if constexpr (STAGED) cp_async_wait<0>();  // no copy outlives the block
 }
 
 int block_for(int U1) { return ((U1 + 31) / 32) * 32; }
-
-size_t smem_for(int U1) { return 5 * static_cast<size_t>(U1) * sizeof(float); }
 
 }  // namespace
 
@@ -347,8 +473,17 @@ extern "C" int rnnt_lattice_bwd(const void* lp_blank, const void* lp_emit,
                                 const void* alphas, const void* ll,
                                 const void* g, void* gblank, void* gemit,
                                 int B, int T, int U1, void* stream) {
-  rnnt_bwd_kernel<<<B, block_for(U1), smem_for(U1),
-                    static_cast<cudaStream_t>(stream)>>>(
+  const int threads = block_for(U1);
+  const bool staged = threads / 32 <= kMaxStagedWarpsBwd;
+  const int smem = staged ? threads * 3 * kRowsBwd *
+                                static_cast<int>(sizeof(float))
+                          : 0;
+  const auto kernel = staged ? rnnt_bwd_kernel<kPrefetch, true>
+                             : rnnt_bwd_kernel<kPrefetch, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lp_blank), static_cast<const float*>(lp_emit),
       static_cast<const int*>(logit_lens), static_cast<const int*>(label_lens),
       static_cast<const float*>(alphas), static_cast<const float*>(ll),

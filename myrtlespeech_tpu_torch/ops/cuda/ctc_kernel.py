@@ -13,8 +13,11 @@ serial chain of T rows.  What the design does about it: rows of the batch
 are independent, so one block per row carries its alpha (beta) row through
 all T steps inside the kernel (one launch, no grid barrier); each thread
 owns ``ceil(S / blockDim)`` columns, the row is double-buffered in shared
-memory, one barrier a step.  Outputs are ``(B, T, S)``, the layout of the
-input, where the TPU kernel wrote time-major and transposed.
+memory, one barrier a step.  K8 keeps its loads of ``lp`` and ``alphas``
+several rows ahead in registers and exponentiates each row's occupancy
+after the step's barrier, so that neither waits on the chain; it sums as
+its plain version does, bit for bit.  Outputs are ``(B, T, S)``, the layout
+of the input, where the TPU kernel wrote time-major and transposed.
 
 The log-softmax, the gather of the extended labels and the pad-invariant
 masks (:func:`ctc_lattice_inputs`) stay PyTorch ops, as they are XLA ops

@@ -13,9 +13,11 @@ serial chain.  What the design does about it: rows of the batch are
 independent, so one block per row carries its lattice row through the whole
 lattice inside the kernel (one launch, no grid barrier), one thread per
 column u.  K3 walks the row by anti-diagonals ``t + u``, one logaddexp, one
-shuffle and one barrier each (``T + U`` of them), which sums alpha in
-another order than the TPU kernel's scan; K4 solves each row by that scan
-(``_linrec_scan``, Hillis-Steele) in shared memory.  The pad-invariant
+shuffle and one barrier each (``T + U`` of them), and K4 walks the same
+anti-diagonals from the end, with both occupancies of a cell computed on
+its own diagonal; so alpha and beta are summed in one order, another than
+the TPU kernel's scan (``_linrec_scan``, Hillis-Steele), which the plain
+versions keep.  The pad-invariant
 rewrite (``_pad_invariant``) is applied as the inputs are loaded, and the
 backward's masking (``_vjp_bwd:272-281``) as the gradients are stored.  The
 TPU kernel's 8-row slabs, batch padding and ``(B, U+1)`` broadcast of ``ll``
@@ -24,7 +26,7 @@ TPU kernel's 8-row slabs, batch padding and ``(B, U+1)`` broadcast of ``ll``
 :func:`rnnt_lattice_fwd` and :func:`rnnt_lattice_bwd` take CUDA tensors to
 the kernels and CPU tensors to :func:`rnnt_lattice_fwd_reference` and
 :func:`rnnt_lattice_bwd_reference`, which follow the TPU kernel's scan in
-fp32 (or in float64, for measuring the kernels' rounding).  There is no fallback from a kernel to its plain version.
+fp32 (or in float64, the yardstick of the kernels' rounding).  There is no fallback from a kernel to its plain version.
 :func:`rnnt_lattice` is the differentiable per-example log-likelihood.
 """
 

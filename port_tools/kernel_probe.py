@@ -1,8 +1,8 @@
-"""One of K3, K5 or K6 alone on the card: what the compiler made of it and
-how long it takes.
+"""One of K3, K4, K5, K6 or K8 alone on the card: what the compiler made of
+it and how long it takes.
 
-    python port_tools/kernel_probe.py --kernel k3|k5|k6 [--shapes 5s,long,...]
-        [--ncu] [--phases] [--bare]
+    python port_tools/kernel_probe.py --kernel k3|k4|k5|k6|k8
+        [--shapes 5s,long,...] [--ncu] [--phases] [--bare]
 
 Prints one JSON line for each of:
 
@@ -11,7 +11,8 @@ Prints one JSON line for each of:
   kernel's sources, as ``build.py`` keeps it beside each library;
 - ``attrs``: ``cudaFuncGetAttributes`` of the K5 or K6 kernel and its blocks
   per SM for each activation, where the package has ``k5_attributes`` /
-  ``k6_attributes`` (K3 has none: its ptxas report gives its registers);
+  ``k6_attributes`` (K3, K4 and K8 have none: their ptxas report gives
+  their registers);
 - for K5, ``design``: the shared-memory wavefronts a product that its design
   issues (``joint_kernel.k5_shared_wavefronts``), where the package has it;
 - ``ncu``: whether ``ncu`` is on ``PATH`` and, with ``--ncu``, the end of
@@ -19,12 +20,18 @@ Prints one JSON line for each of:
   shape;
 - each shape: the wrapper's time (CUDA events, median of 5), the device
   time by kernel of one traced wrapper call, the bound, the largest error
-  against the plain version (over each output's magnitude for K5 and K6;
-  not where the plain version does not fit) and whether two calls are
-  bit-equal.  K3's shapes are ``chip_smoke.py``'s lattices (``5s`` is also
-  the flagship train step's, ``long`` the long step's: B=128, T'=836,
-  U+1=215); K5's and K6's its k56 shapes and ``long`` (B=128, T'=836,
-  U+1=215, K=512, V=29);
+  against the plain version on the same inputs (absolute, and over each
+  output's magnitude; not where the plain version does not fit), whether
+  the two are bit-equal, and whether two calls are bit-equal; for K4 also
+  its and the fp32 plain version's errors against a float64 run of the
+  plain version (``chip_smoke.k4_vs_float64``, where that checkout has
+  it).  K3's and K4's shapes are ``chip_smoke.py``'s lattices (``5s`` is
+  also the flagship train step's, ``long`` the long step's: B=128,
+  T'=836, U+1=215), K4 fed K3's alphas and ll; K5's and K6's its k56
+  shapes and ``long`` (B=128, T'=836, U+1=215, K=512, V=29); K8's the
+  DeepSpeech2 step's lattice (``ds2``: B=32, T'=836, S=429), ``U700``
+  (S=1,401, two columns a thread), ``U4000`` and ``U6000`` (S=8,001 and
+  12,001: eight and sixteen columns a thread), fed K7's alphas and ll;
 - with ``--phases`` (K6), ``phases``: a profiling build of
   ``csrc/joint_tail_bwd.cu`` (``-DK6_PHASE_CLOCKS``) runs each shape once;
   thread 0's clocks in each phase of a (t-tile, u) unit, summed over the
@@ -34,6 +41,8 @@ Prints one JSON line for each of:
   out (its results are wrong): K3 without the alphas' stores
   (``-DK3_SKIP_ALPHA_STORES``), K5 without the softmax
   (``-DK5_SKIP_SOFTMAX``, the products alone): what that part costs.
+  ``port_tools/lattice_variants.py`` does the same for K3, K4, K7 and K8
+  by text, with no switch in the sources.
 
 It imports ``myrtlespeech_tpu_torch`` and ``chip_smoke`` from the first
 place on ``sys.path``: run it with ``PYTHONPATH`` set to another checkout to
@@ -60,10 +69,16 @@ JOINT_SHAPES = {"5s": (32, 251, 65, 512, 29),
                 "long": (128, 836, 215, 512, 29)}
 LATTICE_SHAPES = {"5s": (32, 251, 65), "15s": (32, 751, 193),
                   "long": (128, 836, 215)}
-SOURCES = {"k3": ("rnnt_lattice",), "k5": ("joint_tail",),
-           "k6": ("joint_tail", "joint_tail_bwd")}
-TRACE = {"k3": "rnnt_fwd_kernel", "k5": "joint_tail_fwd_kernel",
-         "k6": "joint_tail_bwd_kernel"}
+CTC_SHAPES = {"ds2": (32, 836, 214, 29, 0), "U700": (4, 1500, 700, 29, 0),
+              "U4000": (1, 8100, 4000, 29, 0), "U6000": (1, 8000, 6000, 29, 0)}
+SHAPES = {"k3": LATTICE_SHAPES, "k4": LATTICE_SHAPES, "k5": JOINT_SHAPES,
+          "k6": JOINT_SHAPES, "k8": CTC_SHAPES}
+SOURCES = {"k3": ("rnnt_lattice",), "k4": ("rnnt_lattice",),
+           "k5": ("joint_tail",), "k6": ("joint_tail", "joint_tail_bwd"),
+           "k8": ("ctc_lattice",)}
+TRACE = {"k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel",
+         "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel",
+         "k8": "ctc_bwd_kernel"}
 
 
 def emit(kind: str, **fields) -> None:
@@ -86,7 +101,7 @@ def ptxas_report(kernel: str) -> None:
 def attributes(kernel: str, dev) -> None:
     from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
 
-    if kernel == "k3":
+    if kernel not in ("k5", "k6"):
         return
     query = getattr(k, f"{kernel}_attributes", None)
     emit("attrs", kernel=kernel, attrs=None if query is None else {
@@ -103,7 +118,7 @@ def ncu(kernel: str, run: bool) -> None:
     path = shutil.which("ncu")
     out = {"path": path}
     if path and run:
-        shape = list(LATTICE_SHAPES if kernel == "k3" else JOINT_SHAPES)[1]
+        shape = list(SHAPES[kernel])[1]
         cmd = [path, "--set", "full", "--kernel-name",
                f"regex:{TRACE[kernel]}", "--launch-count", "1",
                sys.executable, __file__, "--kernel", kernel, "--shapes",
@@ -205,15 +220,37 @@ def _case(kernel: str, label: str, dev):
     """(run, plain, outputs' names, bound args) of one shape."""
     import chip_smoke as cs
 
-    if kernel == "k3":
+    if kernel in ("k3", "k4"):
         from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as k
 
         B, T, U1 = LATTICE_SHAPES[label]
         args = cs._lattice_case(B, T, U1, seed=30, dev=dev)
-        work = cs.bound(*cs.k3_work(B, T, U1), peak=cs.PEAK_FP32_FLOPS)
-        return (lambda: k.rnnt_lattice_fwd(*args),
-                lambda: k.rnnt_lattice_fwd_reference(*args),
-                ("alphas", "ll"), work, dict(B=B, T=T, U1=U1))
+        dims = dict(B=B, T=T, U1=U1)
+        if kernel == "k3":
+            work = cs.bound(*cs.k3_work(B, T, U1), peak=cs.PEAK_FP32_FLOPS)
+            return (lambda: k.rnnt_lattice_fwd(*args),
+                    lambda: k.rnnt_lattice_fwd_reference(*args),
+                    ("alphas", "ll"), work, dims)
+        g = torch.ones((B,), device=dev) / B
+        k4_args = (*args, *k.rnnt_lattice_fwd(*args), g)
+        work = cs.bound(*cs.k4_work(B, T, U1), peak=cs.PEAK_FP32_FLOPS)
+        return (lambda: k.rnnt_lattice_bwd(*k4_args),
+                lambda: k.rnnt_lattice_bwd_reference(*k4_args),
+                ("gblank", "gemit"), work, dict(dims, k4_args=k4_args))
+    if kernel == "k8":
+        from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as k
+
+        B, T, U, V, blank = CTC_SHAPES[label]
+        logits, fl, lab, ul = cs._ctc_case(B, T, U, V, blank, seed=50,
+                                           dev=dev)
+        lp, skip = k.ctc_lattice_inputs(logits, fl, lab, ul, blank)
+        g = torch.full((B,), -1.0 / B, device=dev)
+        fwd = k.ctc_lattice_fwd(lp, skip, ul)
+        _, (f8, n8) = cs.k78_work(B, T, 2 * U + 1)
+        return (lambda: (k.ctc_lattice_bwd(lp, skip, ul, *fwd, g),),
+                lambda: (k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd, g),),
+                ("grad",), cs.bound(f8, n8, peak=cs.PEAK_FP32_FLOPS),
+                dict(B=B, T=T, S=2 * U + 1))
     from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
 
     B, T, U1, K, V = JOINT_SHAPES[label]
@@ -237,6 +274,7 @@ def probe_shape(kernel: str, label: str, dev, once: bool) -> None:
     import chip_smoke as cs
 
     run, plain, names, (bound_ms, bound_by), dims = _case(kernel, label, dev)
+    k4_args = dims.pop("k4_args", None)
     if once:
         run()
         torch.cuda.synchronize()
@@ -246,15 +284,19 @@ def probe_shape(kernel: str, label: str, dev, once: bool) -> None:
         got = run()
         torch.cuda.synchronize()
         want = plain()
-        rel = {}
+        rel, err, same = {}, {}, {}
         for name, g, w in zip(names, got, want):
+            same[name] = torch.equal(g, w)
             g, w = g.float(), w.float()
             if name == "alphas":
                 reach = w > -1e29
                 g, w = g[reach], w[reach]
-            rel[name] = ((g - w).abs().max()
-                         / (w.abs().max() + 1e-30)).item()
-        fields["err_over_magnitude"] = rel
+            err[name] = (g - w).abs().max().item()
+            rel[name] = err[name] / ((w.abs().max()).item() + 1e-30)
+        fields.update(max_abs_err=err, err_over_magnitude=rel,
+                      bit_equal_to_plain=same)
+        if k4_args is not None and hasattr(cs, "k4_vs_float64"):
+            fields["k4_float64"] = cs.k4_vs_float64(k4_args, got, want)
         del got, want
     a, b = run(), run()
     fields["bit_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
@@ -293,8 +335,7 @@ def main() -> int:
     sys.path.append(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     dev = torch.device("cuda", 0)
-    shapes = (a.shapes.split(",") if a.shapes else
-              list(LATTICE_SHAPES if a.kernel == "k3" else JOINT_SHAPES))
+    shapes = a.shapes.split(",") if a.shapes else list(SHAPES[a.kernel])
     if not a.once:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -299,9 +299,13 @@ def _logit_lattice_inputs(B, T, U1, seed, dev):
 # K3 walks the lattice by anti-diagonals, the plain version by the TPU
 # kernel's scan: the same fp32 recursion summed in another order, and CUDA's
 # expf/log1pf against the library's, compounded over the lattice: 1e-5
-# relative on log-likelihoods.  K4 takes the same alphas and ll as its plain
-# version, whose scan it follows in the same order: 1e-5 absolute on
-# occupancies in [0, 1.5].
+# relative on log-likelihoods.  K4 walks the same anti-diagonals from the
+# end, so it too sums beta in another order than its plain version's scan,
+# on the same alphas and ll.  On these small lattices a float32 model of the
+# two orders on the CPU kept them within 1e-4 relative and 1e-5 absolute on
+# occupancies in [0, 1.5] (at most 0.54 of that tolerance, at 32 x 251 x
+# 65), so K4 keeps that tolerance here; on larger lattices it is held to
+# float64 below.
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,U1", [(3, 7, 5), (9, 1, 3), (32, 251, 65),
                                     (2, 20, 193), (1, 3, 1), (3, 1, 1024),
@@ -340,6 +344,88 @@ def test_k4_matches_plain_version_on_the_same_inputs(B, T, U1):
         lpb, lpe, fl, ul, alphas, ll, g)
     torch.testing.assert_close(gb, gb_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(ge, ge_ref, rtol=1e-4, atol=1e-5)
+
+
+def _occupancy_errors_against_float64(args, alphas, ll, g):
+    """K4 and its fp32 plain version, fed the same alphas and ll, each
+    against a float64 run of the plain version: the largest |error| of
+    each occupancy, and the occupancies' largest magnitude."""
+    got = port_k34.rnnt_lattice_bwd(*args, alphas, ll, g)
+    plain = port_k34.rnnt_lattice_bwd_reference(*args, alphas, ll, g)
+    want = port_k34.rnnt_lattice_bwd_reference(*args, alphas, ll, g,
+                                               dtype=torch.float64)
+    return [((k.double() - w).abs().max().item(),
+             (p.double() - w).abs().max().item(), w.abs().max().item())
+            for k, p, w in zip(got, plain, want)]
+
+
+# Where the lattice is at least as long as it is wide, as every main path's
+# is, K4's order errs no more than the plain version's scan against float64
+# (a float32 model of the orders on the CPU read 0.23-1.30 of the scan's
+# error at these shapes): K4 may err at most 3 times the
+# fp32 plain version, as the K3-then-K4 chain below, and never less than 3
+# float32 steps (2^-23) of the largest occupancy, since CUDA's expf may be
+# 2 of them off the library's where the plain version is exact.  These take
+# K4's staged rows at their widest (288 columns) and its per-lane route one
+# column past them and at 1,024, with ragged rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1", [(32, 251, 65), (3, 70, 32), (9, 1, 3),
+                                    (2, 300, 288), (2, 300, 289),
+                                    (1, 1030, 1024)])
+def test_k4_errs_within_three_times_the_plain_version_against_float64(
+        B, T, U1):
+    dev = _card()
+    args = _logit_lattice_inputs(B, T, U1, seed=B + T, dev=dev)
+    alphas, ll = port_k34.rnnt_lattice_fwd(*args)
+    g = torch.linspace(0.5, 1.5, B, device=dev)
+    for name, (k, p, top) in zip(("gblank", "gemit"),
+                                 _occupancy_errors_against_float64(
+                                     args, alphas, ll, g)):
+        assert k <= 3 * max(p, 2.0 ** -23 * top), (name, k, p, top)
+
+
+# Rows much wider than long, as no main path has: K4 sums each row's runs
+# along u one after another, where the plain version's scan sums them in a
+# tree, so here K4 errs more than the scan (a float32 model of the orders on
+# the CPU read up to 7x at 3 x 1 x 1024 and 18x at 2 x 30 x 896; K3's
+# alphas likewise).  Each occupancy is exp(alpha + lp + beta - ll), so K3's
+# own tolerance, 1e-5 of the magnitude on alpha and on ll, carried to beta
+# as well, bounds its exponent's error by 2e-5 |ll| (alpha + beta is about
+# ll on the paths that carry weight): K4 within that share of each
+# occupancy of a float64 run, plus 1e-5 (the model used at most 0.04 of
+# it: K4's error here is its order's, not a fault).  The staged rows' last
+# width and
+# the per-lane route's first, and one frame at the widest lattice.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1", [(2, 30, 288), (2, 30, 289),
+                                    (3, 1, 1024), (2, 40, 1024)])
+def test_k4_on_wide_rows_errs_within_k3s_relative_tolerance(B, T, U1):
+    dev = _card()
+    args = _lattice_inputs(B, T, U1, seed=B + T, dev=dev)
+    alphas, ll = port_k34.rnnt_lattice_fwd(*args)
+    g = torch.linspace(0.5, 1.5, B, device=dev)
+    got = port_k34.rnnt_lattice_bwd(*args, alphas, ll, g)
+    want = port_k34.rnnt_lattice_bwd_reference(*args, alphas, ll, g,
+                                               dtype=torch.float64)
+    share = 2e-5 * ll.double().abs()[:, None, None]
+    for name, k, w in zip(("gblank", "gemit"), got, want):
+        err = (k.double() - w).abs()
+        assert (err <= share * w.abs() + 1e-5).all(), (
+            name, err.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U1", [(32, 251, 65), (2, 30, 288),
+                                    (2, 40, 1024)])
+def test_k4_is_deterministic(B, T, U1):
+    dev = _card()
+    args = _lattice_inputs(B, T, U1, seed=5, dev=dev)
+    alphas, ll = port_k34.rnnt_lattice_fwd(*args)
+    g = torch.linspace(0.5, 1.5, B, device=dev)
+    runs = [port_k34.rnnt_lattice_bwd(*args, alphas, ll, g)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -580,6 +666,30 @@ def test_k7_k8_match_plain_versions(B, T, U, V, blank):
     assert (alphas[~reachable] < -1e29).all()
     torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(grad, grad_ref, rtol=1e-4, atol=1e-5)
+
+
+# More of K8's rows: one column a thread at 255 and 257 columns, the widest
+# (1,023) and one past it (two columns a thread), fewer steps than K8
+# unrolls (8), and one frame.
+K8_MORE_SHAPES = [(3, 300, 127, 29, 0), (3, 300, 128, 29, 0),
+                  (2, 1100, 511, 29, 0), (2, 1100, 512, 29, 0),
+                  (2, 10, 128, 29, 0), (2, 1, 128, 29, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,U,V,blank", CTC_SHAPES + K8_MORE_SHAPES)
+def test_k8_is_bit_equal_to_its_plain_version(B, T, U, V, blank):
+    # K8 keeps its plain version's stencil and the order of its sums (its
+    # loads run ahead and its exps after the step's barrier, neither of
+    # which changes a value): bit-equal on the same inputs.
+    dev = _card()
+    logits, fl, labels, ul = _ctc_inputs(B, T, U, V, blank, B + T, dev)
+    lp, skip = port_k78.ctc_lattice_inputs(logits, fl, labels, ul, blank)
+    g = torch.linspace(-1.5, -0.5, B, device=dev)
+    alphas, ll = port_k78.ctc_lattice_fwd(lp, skip, ul)
+    grad = port_k78.ctc_lattice_bwd(lp, skip, ul, alphas, ll, g)
+    assert torch.equal(grad, port_k78.ctc_lattice_bwd_reference(
+        lp, skip, ul, alphas, ll, g))
 
 
 @pytest.mark.cuda

@@ -114,6 +114,36 @@ def _wavefront_lattice_fwd(lpb, lpe, fl, ul):
     return alphas, torch.where(inside, picked, 0.0)
 
 
+def _wavefront_lattice_bwd(lpb, lpe, fl, ul, alphas, ll, g):
+    """K4's order in float32: diagonals d = t + u from the end; thread u
+    keeps one register, its last cell's beta: beta[t+1, u] for its own
+    next cell and, read by lane u-1, beta[t, u+1]; both occupancies of a
+    cell on its own diagonal, summed as the plain version sums them;
+    ``(gblank, gemit)``, both (B, T, U+1)."""
+    B, T, U1 = lpb.shape
+    lpb, lpe = port_k.pad_invariant(lpb.float(), lpe.float(), fl, ul)
+    u = torch.arange(U1)
+    beta = torch.where(u[None, :] == ul.long()[:, None], 0.0, port_k.NEG_INF)
+    logz, gs = ll.float()[:, None], g.float()[:, None]
+    padded = torch.arange(T)[None, :] >= fl.long()[:, None]
+    gblank, gemit = torch.empty((B, T, U1)), torch.empty((B, T, U1))
+    for d in reversed(range(T + U1 - 1)):
+        t = d - u
+        on = (t >= 0) & (t < T)
+        tc = t.clamp(0, T - 1)
+        right = torch.cat([beta[:, 1:], torch.full((B, 1), port_k.NEG_INF)],
+                          dim=1)
+        bl, em, al = lpb[:, tc, u], lpe[:, tc, u], alphas[tc, :, u].T
+        gb = torch.exp(al + bl + beta - logz) * gs
+        ge = torch.exp(al + em + right - logz) * gs
+        ge = torch.where(torch.isnan(ge), 0.0, ge)
+        pad = padded[:, tc]
+        gblank[:, tc[on], u[on]] = torch.where(pad, 0.0, gb)[:, on]
+        gemit[:, tc[on], u[on]] = torch.where(pad, 0.0, ge)[:, on]
+        beta = torch.where(on, torch.logaddexp(bl + beta, em + right), beta)
+    return gblank, gemit
+
+
 @pytest.mark.parametrize("B,T,U1", [(3, 5, 4), (9, 4, 6), (2, 1, 3),
                                     (4, 17, 9), (1, 3, 1)])
 def test_wavefront_order_matches_pallas_lattice(B, T, U1):
@@ -151,6 +181,56 @@ def test_wavefront_alphas_lie_no_farther_from_float64_than_the_scan(
         np.testing.assert_allclose(ll.numpy(), ll64.numpy(), rtol=K3_RTOL,
                                    atol=K3_ATOL)
     assert errs["wavefront"] <= 1.5 * errs["scan"], errs
+
+
+@pytest.mark.parametrize("B,T,U1", [(3, 5, 4), (9, 4, 6), (2, 1, 3),
+                                    (4, 17, 9), (1, 3, 1)])
+def test_wavefront_bwd_order_matches_pallas_lattice_gradients(B, T, U1):
+    # Both of K3's and K4's orders, chained, against the JAX package's
+    # lattice gradients (its custom VJP, the TPU kernels in interpret mode):
+    # at these small lattices the orders' sums differ by a few fp32 steps,
+    # within the plain versions' 1e-5.
+    lpb, lpe, fl, ul, g = _lattice_case(B, T, U1, seed=B + T)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda a, b: jax_k.rnnt_lattice(a, b, jnp.asarray(fl),
+                                            jnp.asarray(ul)),
+            jnp.asarray(lpb), jnp.asarray(lpe))
+        want = vjp(jnp.asarray(g))
+    args = [torch.from_numpy(a) for a in (lpb, lpe, fl, ul)]
+    got = _wavefront_lattice_bwd(*args, *_wavefront_lattice_fwd(*args),
+                                 torch.from_numpy(g))
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y),
+                                   rtol=LATTICE_TOL, atol=LATTICE_TOL)
+
+
+@pytest.mark.parametrize("B,T,U1,seed", [(4, 200, 60, 5), (2, 251, 65, 7),
+                                         (3, 300, 30, 2)])
+def test_wavefront_chain_lies_no_farther_from_float64_than_the_scan(
+        B, T, U1, seed):
+    # K3 then K4, both by anti-diagonals, against the plain chain (both by
+    # the scan), each against a float64 run of the plain chain: on ll and
+    # each occupancy the wavefront chain may err at most 1.5 times the
+    # scan's.  (K3's order with the scan's K4 read up to 2.3 times here:
+    # the two orders' errors do not cancel as one order's do.)
+    lpb, lpe, fl, ul, g = _lattice_case(B, T, U1, seed=seed)
+    args = [torch.from_numpy(a) for a in (lpb, lpe, fl, ul)]
+    g = torch.from_numpy(g)
+    a64, ll64 = port_k.rnnt_lattice_fwd_reference(*args, dtype=torch.float64)
+    occ64 = port_k.rnnt_lattice_bwd_reference(*args, a64, ll64, g,
+                                              dtype=torch.float64)
+
+    def errs(fwd, occ):
+        return [(fwd[1].double() - ll64).abs().max().item()] + [
+            (o.double() - w).abs().max().item() for o, w in zip(occ, occ64)]
+
+    wave = _wavefront_lattice_fwd(*args)
+    wave = errs(wave, _wavefront_lattice_bwd(*args, *wave, g))
+    plain = port_k.rnnt_lattice_fwd_reference(*args)
+    plain = errs(plain, port_k.rnnt_lattice_bwd_reference(*args, *plain, g))
+    for name, w, p in zip(("ll", "gblank", "gemit"), wave, plain):
+        assert w <= 1.5 * p, (name, wave, plain)
 
 
 def test_plain_k4_in_float64_matches_fp32():
