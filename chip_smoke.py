@@ -83,8 +83,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              backward) against their plain versions on the DeepSpeech2
              step's lattice (B=32, T'=836, S=429), a small one with an empty
              target and the blank last, and one with U=700 (S=1401, above a
-             block's 1,024 threads): errors (K8 bit-equal to its plain
-             version on the same inputs), kernel and plain times, bounds,
+             block's 1,024 threads): errors (K7 also against a float64
+             run of its plain version, at most CHAIN_RATIO times the fp32
+             plain version's error; K8 bit-equal to its plain version on
+             K7's alphas and ll; the K7-then-K8 chain against a float64 run
+             of the plain chain), kernel and plain times, bounds,
              and PyTorch's ``F.ctc_loss`` forward and backward against the
              port's whole CTC loss on the same logits.
     After ``train_long``, ``train_ctc``: ``deep_speech_2_en`` at full width
@@ -96,7 +99,8 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              and one on the per-step route; one K1 and K2 call against the
              plain versions on both routes, cuDNN's bidirectional LSTM at
              the calls' shapes, the K7 and K8 calls against their plain
-             versions, with ``F.ctc_loss``'s forward and backward on the
+             versions (K7 and the chain also against float64, as in
+             ``k78``), with ``F.ctc_loss``'s forward and backward on the
              step's logits as the yardstick; the step's loss and gradient
              norm against the same batch with the plain versions forced on
              the card; a finite eval loss.  Then
@@ -265,13 +269,22 @@ CTC_STEPS = 3
 CTC_LSTM_STEPS = 10 * 836
 CTC_FALLS_STEPS = 20
 
-# K7 and K8 against their plain versions: the same fp32 stencil in the same
-# order; CUDA's expf/log1pf and the library's may differ by an ulp, which the
-# chain of rows compounds: 1e-5 of the magnitude (plus 1e-3 absolute) for
-# alphas and the log-likelihood (some 3e3 at the DeepSpeech2 lattice), 1e-4
-# absolute for the occupancy gradients (in [0, 1] times |g|).  PyTorch's
-# F.ctc_loss sums its own recursion in another order: its per-example losses
-# within 1e-4 of ours.
+# K7 against its plain version: the same fp32 stencil, but K7 sums each
+# cell's three terms with one log (the largest plus the log of one plus the
+# other two's exps, by ex2.approx and lg2.approx) where the plain
+# version nests two precise logaddexps, all compounded along the chain of
+# rows: 1e-5 of the magnitude (plus 1e-3 absolute) for alphas and the
+# log-likelihood (some 3e3 at the DeepSpeech2 lattice; a float32 model of the
+# two orders on the CPU, port_tools/lattice_order_model.py, read 4.4e-3 apart
+# there, within 1.2e-2 of the allowance at every k78 shape).  Every K7 check
+# also holds it against a float64 run of the plain version: its error there,
+# on the alphas of reachable cells and on ll, may be at most CHAIN_RATIO
+# times the fp32 plain version's (the model: 0.45-1.12), and the K7-then-K8
+# chain's gradient at most CHAIN_RATIO times the fp32 plain chain's.  K8
+# keeps its plain version's order: on the same inputs (K7's alphas and ll)
+# it stays within 1e-4 absolute of it, bit-equal in fact (the occupancy
+# gradients lie in [0, 1] times |g|).  PyTorch's F.ctc_loss sums its own
+# recursion in another order: its per-example losses within 1e-4 of ours.
 K7_RTOL, K7_ATOL, K8_ATOL = 1e-5, 1e-3, 1e-4
 CTC_LIBRARY_RTOL = 1e-4
 
@@ -279,7 +292,8 @@ CTC_LIBRARY_RTOL = 1e-4
 # versions forced on the card (same batch, weights and SpecAugment masks).
 # K1 and K2 differ from their plain versions by a bf16 step here and there
 # (K1_TOL, K2_TOL), which ten LSTM directions and four BatchNorms carry into
-# the logits; K7 and K8 are bit-equal to theirs.  In two runs on an H100 the
+# the logits; K7 sums in another order than its plain version (some 1e-3 on
+# an ll of 3e3) and K8 is bit-equal to its own.  In two runs on an H100 the
 # loss read 2.1e-7 and 3.7e-6 apart and the gradient norm 3.2e-4 and 6.4e-5,
 # relative (PERF.md): 1e-4 and 5e-3 leave some 15-25x room.
 CTC_PLAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3}
@@ -724,6 +738,10 @@ def _lattice_case(B, T, U1, seed, dev):
             torch.from_numpy(ul).to(dev))
 
 
+def _float64_ratio(ek: float, ep: float) -> float:
+    return ek / ep if ep > 0 else (0.0 if ek == 0 else float("inf"))
+
+
 def k4_vs_float64(k4_args, bwd, bwd_ref):
     """K4 (``bwd``) and its fp32 plain version (``bwd_ref``), both fed
     ``k4_args`` (K3's alphas and ll among them), each against a float64 run
@@ -737,8 +755,7 @@ def k4_vs_float64(k4_args, bwd, bwd_ref):
         ek = (got.double() - want).abs().max().item()
         ep = (ref.double() - want).abs().max().item()
         out[name] = {"kernel": ek, "plain": ep,
-                     "ratio": ek / ep if ep > 0 else
-                     (0.0 if ek == 0 else float("inf"))}
+                     "ratio": _float64_ratio(ek, ep)}
     return out
 
 
@@ -800,8 +817,7 @@ def lattice_chain_errors(args, g, label: str):
     kernels = errs(kf, k.rnnt_lattice_bwd(*args, *kf, g))
     pf = k.rnnt_lattice_fwd_reference(*args)
     plain = errs(pf, k.rnnt_lattice_bwd_reference(*args, *pf, g))
-    ratio = {n: kernels[n] / plain[n] if plain[n] > 0 else
-             (0.0 if kernels[n] == 0 else float("inf")) for n in kernels}
+    ratio = {n: _float64_ratio(kernels[n], plain[n]) for n in kernels}
     bad = {n: ratio[n] for n in ("ll", "gblank", "gemit")
            if not ratio[n] <= CHAIN_RATIO}
     if bad:
@@ -1012,25 +1028,86 @@ def _ctc_case(B, T, U, V, blank, seed, dev, empty_row: bool = False):
     return tuple(torch.from_numpy(a).to(dev) for a in (logits, fl, lab, ul))
 
 
-def ctc_errors(fwd, bwd, fwd_ref, bwd_ref, label: str):
-    """Largest errors of K7 (alphas of reachable cells, ll) and K8 (the
-    gradient) against the plain versions; raises beyond tolerance."""
+def k7_vs_float64(k7_args, fwd, fwd_ref):
+    """K7 (``fwd``) and its fp32 plain version (``fwd_ref``) on ``k7_args``,
+    each against a float64 run of the plain version on the same inputs: for
+    the alphas of reachable cells and ll, the largest |error| of each and
+    the kernel's over the plain version's."""
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as k
+
+    want = k.ctc_lattice_fwd_reference(*k7_args, dtype=torch.float64)
+    reach = want[0] > -1e29
+    out = {}
+    for i, name in enumerate(("alphas", "ll")):
+        got, ref, w = fwd[i].double(), fwd_ref[i].double(), want[i]
+        if name == "alphas":
+            got, ref, w = got[reach], ref[reach], w[reach]
+        ek = (got - w).abs().max().item()
+        ep = (ref - w).abs().max().item()
+        out[name] = {"kernel": ek, "plain": ep,
+                     "ratio": _float64_ratio(ek, ep)}
+    return out
+
+
+def ctc_errors(fwd, bwd, fwd_ref, bwd_ref, k7_args, label: str):
+    """Largest errors of K7 (alphas of reachable cells, ll) against its plain
+    version and of K8 (the gradient) against its plain version on the same
+    inputs: ``bwd_ref`` is the plain K8 fed K7's own alphas and ll, as
+    ``bwd`` is; and ``k7_float64``, K7's and the plain K7's errors against a
+    float64 run of the plain version on ``k7_args`` (``k7_vs_float64``).
+    Raises beyond K7's tolerance, where K7 errs by more than CHAIN_RATIO
+    times the plain version against float64, or beyond K8_ATOL (K8)."""
     alphas, ll = fwd
     a_ref, ll_ref = fwd_ref
     reach = a_ref > -1e29
     errs = {"alphas": (alphas[reach] - a_ref[reach]).abs().max().item(),
             "ll": (ll - ll_ref).abs().max().item(),
-            "grad": (bwd - bwd_ref).abs().max().item()}
+            "grad": (bwd - bwd_ref).abs().max().item(),
+            "k7_float64": k7_vs_float64(k7_args, fwd, fwd_ref)}
     ok = (bool((alphas[~reach] < -1e29).all())
           and torch.allclose(alphas[reach], a_ref[reach], rtol=K7_RTOL,
                              atol=K7_ATOL)
           and torch.allclose(ll, ll_ref, rtol=K7_RTOL, atol=K7_ATOL)
+          and all(e["ratio"] <= CHAIN_RATIO
+                  for e in errs["k7_float64"].values())
           and errs["grad"] <= K8_ATOL)
     if not ok:
         raise AssertionError(f"K7/K8 {label}: max |err| {errs} beyond rtol "
-                             f"{K7_RTOL} atol {K7_ATOL} (K7), atol "
-                             f"{K8_ATOL} (K8)")
+                             f"{K7_RTOL} atol {K7_ATOL} (K7), {CHAIN_RATIO}x "
+                             f"the plain K7 against float64, atol {K8_ATOL} "
+                             f"(K8)")
     return errs
+
+
+def ctc_chain_errors(k7_args, g, label: str):
+    """The kernels' chain (K7, then K8 on its alphas) and the plain chain in
+    fp32, each against a float64 run of the plain chain: the largest |error|
+    of ll and the gradient.  Raises when the kernels' error on either
+    exceeds CHAIN_RATIO times the plain chain's."""
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as k
+
+    f64 = torch.float64
+    a64, ll64 = k.ctc_lattice_fwd_reference(*k7_args, dtype=f64)
+    grad64 = k.ctc_lattice_bwd_reference(*k7_args, a64, ll64, g, dtype=f64)
+    del a64
+
+    def errs(fwd, grad):
+        return {"ll": (fwd[1].double() - ll64).abs().max().item(),
+                "grad": (grad.double() - grad64).abs().max().item()}
+
+    kf = k.ctc_lattice_fwd(*k7_args)
+    kernels = errs(kf, k.ctc_lattice_bwd(*k7_args, *kf, g))
+    del kf
+    pf = k.ctc_lattice_fwd_reference(*k7_args)
+    plain = errs(pf, k.ctc_lattice_bwd_reference(*k7_args, *pf, g))
+    del pf
+    ratio = {n: _float64_ratio(kernels[n], plain[n]) for n in kernels}
+    bad = {n: r for n, r in ratio.items() if not r <= CHAIN_RATIO}
+    if bad:
+        raise AssertionError(f"K7->K8 chain {label}: error against float64 "
+                             f"{kernels}, the plain chain's {plain}: ratios "
+                             f"{bad} over {CHAIN_RATIO}")
+    return {"kernels": kernels, "plain": plain, "ratio": ratio}
 
 
 def _library_ctc(logits, logit_lens, labels, label_lens, blank):
@@ -1044,10 +1121,13 @@ def _library_ctc(logits, logit_lens, labels, label_lens, blank):
 def phase_k78(dev):
     """K7 and K8 against their plain versions, timed: on the DeepSpeech2
     step's lattice, a small one with an empty target and the blank last,
-    and one with S=1401 (two columns a thread).  Times are CUDA-event
-    medians of the wrapper calls; the yardstick is ``F.ctc_loss``'s forward
-    and backward (from the logits, log-softmax included) against the port's
-    whole CTC loss, forward and backward, on the same logits."""
+    and one with S=1401 (two columns a thread).  K7 also against a float64
+    run of its plain version, K8 and its plain version both fed K7's alphas
+    and ll, and the K7-then-K8 chain against a float64 run of the plain
+    chain.  Times are CUDA-event medians of the wrapper calls; the yardstick
+    is ``F.ctc_loss``'s forward and backward (from the logits, log-softmax
+    included) against the port's whole CTC loss, forward and backward, on
+    the same logits."""
     from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as k
 
     shapes = {"ds2": (32, 836, 214, 29, 0, False),
@@ -1062,15 +1142,15 @@ def phase_k78(dev):
         bwd = k.ctc_lattice_bwd(lp, skip, ul, *fwd, g)
         torch.cuda.synchronize()
         fwd_ref = k.ctc_lattice_fwd_reference(lp, skip, ul)
-        bwd_ref = k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd_ref, g)
-        errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, label)
+        bwd_ref = k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd, g)
+        errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, (lp, skip, ul), label)
         # K8 keeps its plain version's stencil and sums: bit-equal on the
         # same inputs.
-        k8_bit_equal = torch.equal(
-            bwd, k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd, g))
+        k8_bit_equal = torch.equal(bwd, bwd_ref)
         if not k8_bit_equal:
             raise AssertionError(f"K8 {label}: not bit-equal to its plain "
                                  "version on the same inputs")
+        chain = ctc_chain_errors((lp, skip, ul), g, label)
         lib_nll = _library_ctc(logits, fl, lab, ul, blank)
         lib_rel = ((lib_nll + fwd[1]).abs() / lib_nll.abs()).max().item()
         if not lib_rel <= CTC_LIBRARY_RTOL:
@@ -1102,9 +1182,12 @@ def phase_k78(dev):
         b8, by8 = bound(f8, n8, peak=PEAK_FP32_FLOPS)
         emit("k78", shape=label, B=B, T=T, U=U, S=S, V=V, blank=blank,
              empty_targets=int((ul == 0).sum()), max_abs_err=errs,
-             k8_bit_equal=k8_bit_equal, library_rel_diff=lib_rel,
+             k8_bit_equal=k8_bit_equal, chain_vs_float64=chain,
+             library_rel_diff=lib_rel,
              tolerance={"k7_rtol": K7_RTOL, "k7_atol": K7_ATOL,
-                        "k8_atol": K8_ATOL, "library_rtol": CTC_LIBRARY_RTOL},
+                        "k7_float64_ratio": CHAIN_RATIO,
+                        "chain_ratio": CHAIN_RATIO, "k8_atol": K8_ATOL,
+                        "library_rtol": CTC_LIBRARY_RTOL},
              **times,
              library="F.ctc_loss forward + backward from the logits, "
                      "against log_softmax + gather + K7 + K8 + scatter",
@@ -2360,8 +2443,10 @@ def phase_train_ctc(dev):
         bwd = ctc_kernel.ctc_lattice_bwd(*k8_args)
         fwd_ref = ctc_kernel.ctc_lattice_fwd_reference(*k7_args)
         bwd_ref = ctc_kernel.ctc_lattice_bwd_reference(*k8_args)
-        k78_errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, "CTC step")
+        k78_errs = ctc_errors(fwd, bwd, fwd_ref, bwd_ref, k7_args,
+                              "CTC step")
         del fwd, bwd, fwd_ref, bwd_ref
+        k78_chain = ctc_chain_errors(k7_args, k8_args[-1], "CTC step")
         _, k7_plain = device_trace(
             lambda: ctc_kernel.ctc_lattice_fwd_reference(*k7_args),
             or_events=True)
@@ -2446,7 +2531,8 @@ def phase_train_ctc(dev):
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
          k1=lstm["k1"], k2=lstm["k2"], k1_ds2=k1_ds2, k2_ds2=k2_ds2,
          k1_tolerance=K1_TOL, k2_tolerance=K2_TOL,
-         k78_max_abs_err=k78_errs, k7_plain_device_ms=span_ms(k7_plain),
+         k78_max_abs_err=k78_errs, k78_chain_vs_float64=k78_chain,
+         k7_plain_device_ms=span_ms(k7_plain),
          k8_plain_device_ms=span_ms(k8_plain),
          library_fwd_device_ms=span_ms(lib_fwd),
          library_bwd_device_ms=span_ms(lib_bwd), k7_bound_ms=b7,
@@ -2456,7 +2542,9 @@ def phase_train_ctc(dev):
          eval_launches=eval_launches)
     src = "myrtlespeech_tpu_torch/csrc/ctc_lattice.cu"
     return k1_ds2, k2_ds2, [
-        {"name": "K7 ctc_lattice_fwd", "route": "cuda", "source": src,
+        {"name": "K7 ctc_lattice_fwd (rows of lp by cp.async into a "
+                 "shared ring, one log a cell)", "route": "cuda",
+         "source": src,
          "replaces": "myrtlespeech_tpu/ops/pallas/ctc_kernel.py:45 "
                      "(_fwd_kernel, pallas_call in _fwd_impl :151)",
          "launches": CTC_LAUNCHES["k7"],

@@ -13,11 +13,18 @@ serial chain of T rows.  What the design does about it: rows of the batch
 are independent, so one block per row carries its alpha (beta) row through
 all T steps inside the kernel (one launch, no grid barrier); each thread
 owns ``ceil(S / blockDim)`` columns, the row is double-buffered in shared
-memory, one barrier a step.  K8 keeps its loads of ``lp`` and ``alphas``
-several rows ahead in registers and exponentiates each row's occupancy
-after the step's barrier, so that neither waits on the chain; it sums as
-its plain version does, bit for bit.  Outputs are ``(B, T, S)``, the layout
-of the input, where the TPU kernel wrote time-major and transposed.
+memory, one barrier a step.  K7 copies its rows of ``lp`` several rows
+ahead by ``cp.async`` into a ring in shared memory, and sums each cell's
+three terms with one approximate log (the largest plus the log of one plus
+the other two's exps, by ``ex2.approx`` and ``lg2.approx``), where its
+plain version nests two precise logaddexps: the two no longer
+agree bit for bit, so K7 is held against a float64 run of the plain version
+(``dtype=torch.float64``).  K8 asks for its rows of ``lp`` and ``alphas``
+several rows ahead into L1 by prefetch and exponentiates each row's
+occupancy after the step's barrier, so that neither waits on the chain; it
+sums as its plain version does, bit for bit.  Outputs are ``(B, T, S)``,
+the layout of the input, where the TPU kernel wrote time-major and
+transposed.
 
 The log-softmax, the gather of the extended labels and the pad-invariant
 masks (:func:`ctc_lattice_inputs`) stay PyTorch ops, as they are XLA ops
@@ -26,8 +33,9 @@ back through them.
 
 :func:`ctc_lattice_fwd` and :func:`ctc_lattice_bwd` take CUDA tensors to the
 kernels and CPU tensors to :func:`ctc_lattice_fwd_reference` and
-:func:`ctc_lattice_bwd_reference`, which follow the kernels step by step in
-fp32.  There is no fallback from a kernel to its plain version.
+:func:`ctc_lattice_bwd_reference`, which follow the TPU kernels step by step
+in fp32 (or in ``dtype``).  There is no fallback from a kernel to its plain
+version.
 """
 
 from __future__ import annotations
@@ -61,20 +69,23 @@ def _terminal(label_lens: torch.Tensor, S: int, device
 
 
 def ctc_lattice_fwd_reference(lp_ext: torch.Tensor, can_skip: torch.Tensor,
-                              label_lens: torch.Tensor
+                              label_lens: torch.Tensor,
+                              dtype: torch.dtype = torch.float32
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K7.
+    """Plain PyTorch version of K7, in the TPU kernel's order: each cell
+    ``logaddexp(logaddexp(stay, advance), skip) + lp``.
 
     ``lp_ext (B, T, S)`` fp32 (pad-invariant, see :func:`ctc_lattice_inputs`),
     ``can_skip (B, S)`` float 0/1, ``label_lens (B,)`` int.  Returns
-    ``(alphas (B, T, S), ll (B,))`` fp32; ``ll`` sums the terminal positions
-    once each, so an empty target reads position 0 once.
+    ``(alphas (B, T, S), ll (B,))`` in ``dtype`` (fp32, as the kernel;
+    float64 gives the yardstick of both's rounding); ``ll`` sums the
+    terminal positions once each, so an empty target reads position 0 once.
     """
     B, T, S = lp_ext.shape
-    lp = lp_ext.float()
+    lp = lp_ext.to(dtype)
     dev = lp.device
     skip = can_skip.to(dev) > 0.5
-    alphas = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+    alphas = torch.empty((B, T, S), dtype=dtype, device=dev)
     s_iota = torch.arange(S, device=dev)[None, :]
     alpha = torch.where(s_iota <= 1, lp[:, 0], NEG_INF)
     alphas[:, 0] = alpha
@@ -93,26 +104,28 @@ def ctc_lattice_fwd_reference(lp_ext: torch.Tensor, can_skip: torch.Tensor,
 
 def ctc_lattice_bwd_reference(lp_ext: torch.Tensor, can_skip: torch.Tensor,
                               label_lens: torch.Tensor, alphas: torch.Tensor,
-                              ll: torch.Tensor, g: torch.Tensor
+                              ll: torch.Tensor, g: torch.Tensor,
+                              dtype: torch.dtype = torch.float32
                               ) -> torch.Tensor:
     """Plain PyTorch version of K8.
 
     Inputs as :func:`ctc_lattice_fwd_reference`, its outputs ``alphas`` and
     ``ll``, and ``g (B,)`` the cotangent of ``ll``.  Returns ``d ll / d
-    lp_ext * g``, ``(B, T, S)`` fp32: the occupancies ``exp(alpha + beta - lp
-    - ll) * g``.  The skip into ``s + 2`` is taken where ``can_skip[s + 2]``
-    is set.
+    lp_ext * g``, ``(B, T, S)`` in ``dtype``: the occupancies ``exp(alpha +
+    beta - lp - ll) * g``.  The skip into ``s + 2`` is taken where
+    ``can_skip[s + 2]`` is set.
     """
     B, T, S = lp_ext.shape
-    lp = lp_ext.float()
+    lp = lp_ext.to(dtype)
     dev = lp.device
     skip_dst = _shift((can_skip.to(dev) > 0.5).float(), 2, reverse=True) > 0.5
     s_iota = torch.arange(S, device=dev)[None, :]
     i1, i0 = _terminal(label_lens, S, dev)
     terminal = (s_iota == i1[:, None]) | (s_iota == i0[:, None])
-    logz = ll.float()[:, None]
-    gs = g.float()[:, None]
-    grad = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+    alphas = alphas.to(dtype)
+    logz = ll.to(dtype)[:, None]
+    gs = g.to(dtype)[:, None]
+    grad = torch.empty((B, T, S), dtype=dtype, device=dev)
     beta = torch.where(terminal, lp[:, T - 1], NEG_INF)
     grad[:, T - 1] = torch.exp(alphas[:, T - 1] + beta - lp[:, T - 1]
                                - logz) * gs

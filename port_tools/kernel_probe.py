@@ -1,7 +1,7 @@
-"""One of K3, K4, K5, K6 or K8 alone on the card: what the compiler made of
-it and how long it takes.
+"""One of K3, K4, K5, K6, K7 or K8 alone on the card: what the compiler made
+of it and how long it takes.
 
-    python port_tools/kernel_probe.py --kernel k3|k4|k5|k6|k8
+    python port_tools/kernel_probe.py --kernel k3|k4|k5|k6|k7|k8
         [--shapes 5s,long,...] [--ncu] [--phases] [--bare]
 
 Prints one JSON line for each of:
@@ -25,17 +25,20 @@ Prints one JSON line for each of:
   the two are bit-equal, and whether two calls are bit-equal; for K4 also
   its and the fp32 plain version's errors against a float64 run of the
   plain version (``chip_smoke.k4_vs_float64``, where that checkout has
-  it).  K3's and K4's shapes are ``chip_smoke.py``'s lattices (``5s`` is
+  it), and for K7 the same on alphas and ll (``chip_smoke.k7_vs_float64``).
+  K3's and K4's shapes are ``chip_smoke.py``'s lattices (``5s`` is
   also the flagship train step's, ``long`` the long step's: B=128,
   T'=836, U+1=215), K4 fed K3's alphas and ll; K5's and K6's its k56
-  shapes and ``long`` (B=128, T'=836, U+1=215, K=512, V=29); K8's the
-  DeepSpeech2 step's lattice (``ds2``: B=32, T'=836, S=429), ``U700``
+  shapes and ``long`` (B=128, T'=836, U+1=215, K=512, V=29); K7's and K8's
+  the DeepSpeech2 step's lattice (``ds2``: B=32, T'=836, S=429), ``U700``
   (S=1,401, two columns a thread), ``U4000`` and ``U6000`` (S=8,001 and
-  12,001: eight and sixteen columns a thread), fed K7's alphas and ll;
-- with ``--phases`` (K6), ``phases``: a profiling build of
-  ``csrc/joint_tail_bwd.cu`` (``-DK6_PHASE_CLOCKS``) runs each shape once;
-  thread 0's clocks in each phase of a (t-tile, u) unit, summed over the
-  blocks, over its clocks in the whole kernel;
+  12,001: eight and sixteen columns a thread), K8 fed K7's alphas and ll;
+- with ``--phases`` (K6, K7), ``phases``: a profiling build of
+  ``csrc/joint_tail_bwd.cu`` (``-DK6_PHASE_CLOCKS``) or
+  ``csrc/ctc_lattice.cu`` (``-DK7_PHASE_CLOCKS``) runs each shape once;
+  thread 0's clocks in each phase of a (t-tile, u) unit or of a lattice
+  step, summed over the blocks, over its clocks in the whole kernel (K7:
+  also each phase's clocks a step);
 - with ``--bare`` (K3, K5), ``bare``: the kernel's device time at each
   shape, in turns with a measuring build of its source that leaves a part
   out (its results are wrong): K3 without the alphas' stores
@@ -72,13 +75,13 @@ LATTICE_SHAPES = {"5s": (32, 251, 65), "15s": (32, 751, 193),
 CTC_SHAPES = {"ds2": (32, 836, 214, 29, 0), "U700": (4, 1500, 700, 29, 0),
               "U4000": (1, 8100, 4000, 29, 0), "U6000": (1, 8000, 6000, 29, 0)}
 SHAPES = {"k3": LATTICE_SHAPES, "k4": LATTICE_SHAPES, "k5": JOINT_SHAPES,
-          "k6": JOINT_SHAPES, "k8": CTC_SHAPES}
+          "k6": JOINT_SHAPES, "k7": CTC_SHAPES, "k8": CTC_SHAPES}
 SOURCES = {"k3": ("rnnt_lattice",), "k4": ("rnnt_lattice",),
            "k5": ("joint_tail",), "k6": ("joint_tail", "joint_tail_bwd"),
-           "k8": ("ctc_lattice",)}
+           "k7": ("ctc_lattice",), "k8": ("ctc_lattice",)}
 TRACE = {"k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel",
          "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel",
-         "k8": "ctc_bwd_kernel"}
+         "k7": "ctc_fwd_kernel", "k8": "ctc_bwd_kernel"}
 
 
 def emit(kind: str, **fields) -> None:
@@ -162,30 +165,44 @@ class Swapped:
         self.build.load_library = self.real
 
 
-PHASES = ("h_and_partial_logits", "barrier_1", "dlogits", "barrier_2",
-          "dw2", "dh_and_dgp", "kernel")
+# The profiling builds of --phases: the source, its switch, the function
+# that reads (and zeroes) the clocks, and the parts it splits a unit or step
+# into, the whole kernel last.
+PHASE_BUILDS = {
+    "k6": ("joint_tail_bwd", "K6_PHASE_CLOCKS", "joint_tail_bwd_phase_clocks",
+           ("h_and_partial_logits", "barrier_1", "dlogits", "barrier_2",
+            "dw2", "dh_and_dgp", "kernel")),
+    "k7": ("ctc_lattice", "K7_PHASE_CLOCKS", "ctc_lattice_fwd_phase_clocks",
+           ("shared_reads", "logsumexp_and_shared_store", "alpha_store",
+            "row_copy_wait_and_take", "barrier", "kernel")),
+}
 
 
-def phase_clocks(labels, dev) -> None:
-    import chip_smoke as cs
-    from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
-
-    lib = variant_library("joint_tail_bwd", "K6_PHASE_CLOCKS")
-    with Swapped("joint_tail_bwd", lib):
+def phase_clocks(kernel: str, labels, dev) -> None:
+    source, define, reader, names = PHASE_BUILDS[kernel]
+    lib = variant_library(source, define)
+    with Swapped(source, lib):
         for label in labels:
-            B, T, U1, K, V = JOINT_SHAPES[label]
-            args, cot = cs._k56_case(B, T, U1, K, V, seed=40, dev=dev)
-            clocks = (ctypes.c_ulonglong * 7)()
-            k.joint_tail_bwd(*args, *cot, *cs.JOINT_CFG)
+            run, _, _, _, dims = _case(kernel, label, dev)
+            clocks = (ctypes.c_ulonglong * len(names))()
+            run()
             torch.cuda.synchronize()
-            lib.joint_tail_bwd_phase_clocks(clocks)  # zeroes them
-            k.joint_tail_bwd(*args, *cot, *cs.JOINT_CFG)
+            getattr(lib, reader)(clocks)  # zeroes them
+            run()
             torch.cuda.synchronize()
-            lib.joint_tail_bwd_phase_clocks(clocks)
-            total = clocks[6]
-            emit("phases", shape=label, kernel_clocks_summed=total,
-                 share={n: clocks[i] / total for i, n in enumerate(PHASES)})
-            del args, cot
+            getattr(lib, reader)(clocks)
+            total = clocks[len(names) - 1]
+            fields = {}
+            if kernel == "k7":  # thread 0's clocks a lattice step
+                steps = dims["B"] * (dims["T"] - 1)
+                fields["clocks_a_step"] = {n: clocks[i] / steps
+                                           for i, n in enumerate(names)}
+            emit("phases", kernel=kernel, shape=label,
+                 kernel_clocks_summed=total,
+                 share={n: clocks[i] / total for i, n in enumerate(names)},
+                 **fields)
+            del run
+            torch.cuda.empty_cache()
 
 
 def kernel_device_ms(run, name: str) -> float:
@@ -237,20 +254,26 @@ def _case(kernel: str, label: str, dev):
         return (lambda: k.rnnt_lattice_bwd(*k4_args),
                 lambda: k.rnnt_lattice_bwd_reference(*k4_args),
                 ("gblank", "gemit"), work, dict(dims, k4_args=k4_args))
-    if kernel == "k8":
+    if kernel in ("k7", "k8"):
         from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as k
 
         B, T, U, V, blank = CTC_SHAPES[label]
         logits, fl, lab, ul = cs._ctc_case(B, T, U, V, blank, seed=50,
                                            dev=dev)
         lp, skip = k.ctc_lattice_inputs(logits, fl, lab, ul, blank)
+        (f7, n7), (f8, n8) = cs.k78_work(B, T, 2 * U + 1)
+        dims = dict(B=B, T=T, S=2 * U + 1)
+        if kernel == "k7":
+            return (lambda: k.ctc_lattice_fwd(lp, skip, ul),
+                    lambda: k.ctc_lattice_fwd_reference(lp, skip, ul),
+                    ("alphas", "ll"),
+                    cs.bound(f7, n7, peak=cs.PEAK_FP32_FLOPS),
+                    dict(dims, k7_args=(lp, skip, ul)))
         g = torch.full((B,), -1.0 / B, device=dev)
         fwd = k.ctc_lattice_fwd(lp, skip, ul)
-        _, (f8, n8) = cs.k78_work(B, T, 2 * U + 1)
         return (lambda: (k.ctc_lattice_bwd(lp, skip, ul, *fwd, g),),
                 lambda: (k.ctc_lattice_bwd_reference(lp, skip, ul, *fwd, g),),
-                ("grad",), cs.bound(f8, n8, peak=cs.PEAK_FP32_FLOPS),
-                dict(B=B, T=T, S=2 * U + 1))
+                ("grad",), cs.bound(f8, n8, peak=cs.PEAK_FP32_FLOPS), dims)
     from myrtlespeech_tpu_torch.ops.cuda import joint_kernel as k
 
     B, T, U1, K, V = JOINT_SHAPES[label]
@@ -275,6 +298,7 @@ def probe_shape(kernel: str, label: str, dev, once: bool) -> None:
 
     run, plain, names, (bound_ms, bound_by), dims = _case(kernel, label, dev)
     k4_args = dims.pop("k4_args", None)
+    k7_args = dims.pop("k7_args", None)
     if once:
         run()
         torch.cuda.synchronize()
@@ -297,6 +321,8 @@ def probe_shape(kernel: str, label: str, dev, once: bool) -> None:
                       bit_equal_to_plain=same)
         if k4_args is not None and hasattr(cs, "k4_vs_float64"):
             fields["k4_float64"] = cs.k4_vs_float64(k4_args, got, want)
+        if k7_args is not None and hasattr(cs, "k7_vs_float64"):
+            fields["k7_float64"] = cs.k7_vs_float64(k7_args, got, want)
         del got, want
     a, b = run(), run()
     fields["bit_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
@@ -349,8 +375,8 @@ def main() -> int:
         ncu(a.kernel, a.ncu)
     for label in shapes:
         probe_shape(a.kernel, label, dev, a.once)
-    if a.phases:
-        phase_clocks(shapes, dev)
+    if a.phases and a.kernel in PHASE_BUILDS:
+        phase_clocks(a.kernel, shapes, dev)
     if a.bare and a.kernel in BARE:
         bare_times(a.kernel, shapes, dev)
     return 0

@@ -6,15 +6,19 @@ results may be wrong), and the price of a cluster barrier.
         [--cluster-barrier]
 
 For each kernel and each of its variants (``VARIANTS``: a source, the text
-replaced, and what that leaves out), one JSON line: the kernel's time at
+replaced or a measuring source beside this script, and what that leaves
+out), one JSON line: the kernel's time at
 each shape, as the checkout builds it and as the variant builds it, in
 turns (kernel, variant, variant, kernel; each the CUDA-event median of five
 calls queued behind a spin kernel, ``chip_smoke.cuda_ms``, so the device's
 own time of the one launch), and whether the variant's results are
-bit-equal to the kernel's.
+bit-equal to the kernel's; for K7 also the kernel's and the variant's
+errors against a float64 run of the plain version
+(``chip_smoke.k7_vs_float64``: each over the fp32 plain version's).
 The shapes are ``chip_smoke.py``'s: the long step's lattice for K3 and K4
 (B=128, T'=836, U+1=215; K4 also the flagship's, 32 x 251 x 65) and the
-DeepSpeech2 step's for K7 and K8 (B=32, T'=836, S=429).  With
+DeepSpeech2 step's for K7 and K8 (B=32, T'=836, S=429; K7 also ``U700``,
+4 x 1,500 x 1,401, two columns a thread).  With
 ``--cluster-barrier``, ``port_tools/cluster_barrier.cu`` times n rounds of
 a shared-memory exchange and a barrier across a cluster of 4 blocks (128
 blocks of 160 threads, as 32 rows split four ways would run) against the
@@ -38,6 +42,10 @@ BRANCHY = [("  const float r = m + log1pf(expf(-fabsf(d)));\n"
             "  return isnan(d) ? a + b : r;",
             "  if (isnan(d)) return a + b;\n"
             "  return m + log1pf(expf(-fabsf(d)));")]
+
+# K7's copy of a row into its ring and its read of a row from it.
+K7_COPY = "cp_async4(slot + k * n, src + k * n);"
+K7_TAKE = "v[k] = slot[k * n];"
 
 # kernel: (source, {variant: ([(old, new), ...], what it leaves out)})
 VARIANTS = {
@@ -73,11 +81,34 @@ VARIANTS = {
                          "the loads into registers 8 diagonals ahead"),
     }),
     "k7": ("ctc_lattice", {
-        "no_row_loads": ([("      nxt[k] = (s < S && t + 1 < T)\n"
-                           "                   ? lp[static_cast<size_t>(t + 1)"
-                           " * S + s]\n                   : kNegInf;",
-                           "      nxt[k] = 0.f;")],
-                         "the loads into registers a row ahead"),
+        "no_row_loads": ([(K7_COPY, ";"), (K7_TAKE, "v[k] = 0.f;")],
+                         "the rows' cp.async copies and their reads from "
+                         "the ring"),
+        "l1_prefetch": ([(K7_COPY, "prefetch_l1(src + k * n);"),
+                         (K7_TAKE, "v[k] = col[k] ? src[k * n - "
+                                   "static_cast<ptrdiff_t>(R) * S] : 0.f;")],
+                        "the ring: rows prefetched into L1 as many rows "
+                        "ahead, then loaded a step ahead"),
+        "no_alpha_stores": ([("if (col[k0 + j]) orow[(k0 + j) * n] = "
+                              "own[k0 + j];", ";")], "the stores of alphas"),
+        "two_logaddexps": ([("logsumexp3(a, adv[j], skp[j])",
+                             "logaddexp(logaddexp(a, adv[j]), skp[j])")],
+                           "one log a cell: the plain version's two nested "
+                           "logaddexps"),
+        "precise_expf_log1pf": ([("m + __logf(1.f + (exp_approx(x - m) + "
+                                  "exp_approx(y - m)))",
+                                  "m + log1pf(expf(x - m) + expf(y - m))")],
+                                "ex2.approx and lg2.approx: CUDA's precise "
+                                "expf and log1pf"),
+        "two_cols_a_thread": ([("for (int c = 1; c <= kMaxCols; c *= 2)",
+                                "for (int c = 2; c <= kMaxCols; c *= 2)")],
+                              "one column a thread up to 1,024 (two or more "
+                              "columns a thread, half the warps)"),
+        "shuffle_layout": ("k7_shuffle.cu",
+                           "one column a thread in shared memory: 4 "
+                           "consecutive columns a lane in registers, s-1 and "
+                           "s-2 by __shfl_up_sync, warp edges through shared "
+                           "memory (4 warps at S=429)"),
     }),
 }
 
@@ -87,18 +118,25 @@ def emit(kind: str, **fields) -> None:
 
 
 def build_variant(kernel: str, source: str, name: str, reps):
+    """The variant's library: ``csrc/<source>.cu`` with ``reps`` replaced,
+    or, where ``reps`` names a file beside this script, that file."""
     from myrtlespeech_tpu_torch.ops.cuda import build
 
-    text = (build.CSRC_DIR / f"{source}.cu").read_text()
-    for old, new in reps:
-        if old not in text:
-            raise ValueError(f"{name}: text not found in {source}.cu: {old!r}")
-        text = text.replace(old, new)
     out = build.BUILD_DIR / "variants" / f"{kernel}-{name}"
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.with_suffix(".cu").write_text(text)
+    if isinstance(reps, str):
+        cu = os.path.join(os.path.dirname(os.path.abspath(__file__)), reps)
+    else:
+        text = (build.CSRC_DIR / f"{source}.cu").read_text()
+        for old, new in reps:
+            if old not in text:
+                raise ValueError(f"{name}: text not found in {source}.cu: "
+                                 f"{old!r}")
+            text = text.replace(old, new)
+        cu = str(out.with_suffix(".cu"))
+        out.with_suffix(".cu").write_text(text)
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o",
-                    str(out.with_suffix(".so")), str(out.with_suffix(".cu"))],
+                    str(out.with_suffix(".so")), cu],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(out.with_suffix(".so")))
 
@@ -123,10 +161,18 @@ def cases(kernel: str, dev):
                        torch.ones((B,), device=dev) / B)
             out[label] = lambda a=k4_args: kr.rnnt_lattice_bwd(*a)
         return out
+    if kernel == "k7":
+        out = {}
+        for label, (B, T, U) in (("ds2", (32, 836, 214)),
+                                 ("U700", (4, 1500, 700))):
+            logits, fl, lab, ul = cs._ctc_case(B, T, U, 29, 0, seed=50,
+                                               dev=dev)
+            args = (*kc.ctc_lattice_inputs(logits, fl, lab, ul, 0), ul)
+            out[label] = lambda a=args: kc.ctc_lattice_fwd(*a)
+            out[label].k7_args = args
+        return out
     logits, fl, lab, ul = cs._ctc_case(32, 836, 214, 29, 0, seed=50, dev=dev)
     lp, skip = kc.ctc_lattice_inputs(logits, fl, lab, ul, 0)
-    if kernel == "k7":
-        return {"ds2": lambda: kc.ctc_lattice_fwd(lp, skip, ul)}
     fwd = kc.ctc_lattice_fwd(lp, skip, ul)
     g = torch.full((32,), -1.0 / 32, device=dev)
     return {"ds2": lambda: (kc.ctc_lattice_bwd(lp, skip, ul, *fwd, g),)}
@@ -137,8 +183,12 @@ def measure(kernel: str, dev) -> None:
 
     import chip_smoke as cs
 
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel as kc
+
     source, variants = VARIANTS[kernel]
     runs = cases(kernel, dev)
+    plain = {label: kc.ctc_lattice_fwd_reference(*run.k7_args)
+             for label, run in runs.items() if hasattr(run, "k7_args")}
     for name, (reps, what) in variants.items():
         lib = build_variant(kernel, source, name, reps)
 
@@ -154,8 +204,16 @@ def measure(kernel: str, dev) -> None:
                 got = run()
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(got, want))
+            f64 = {}
+            if label in plain:
+                f64 = {"float64": {
+                    "kernel": cs.k7_vs_float64(run.k7_args, want,
+                                               plain[label]),
+                    "variant": cs.k7_vs_float64(run.k7_args, got,
+                                                plain[label])}}
+            del got, want
             emit("turns", kernel=kernel, variant=name, leaves_out=what,
-                 shape=label, bit_equal=same,
+                 shape=label, bit_equal=same, **f64,
                  ms_kernel_variant_variant_kernel=[
                      ms(run, False), ms(run, True), ms(run, True),
                      ms(run, False)])
