@@ -103,10 +103,24 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              ``k78``), with ``F.ctc_loss``'s forward and backward on the
              step's logits as the yardstick; the step's loss and gradient
              norm against the same batch with the plain versions forced on
-             the card; a finite eval loss.  Then
+             the card; a finite eval loss.  Then ``ds2_serve``:
+             ``deep_speech_2_en`` at full width with seeded weights
+             transcribes B=32 x 16.7 s of seeded noise through
+             ``build_transcriber`` and its beam decoder (W=16): K1 10
+             launches a batch and nothing else, no plain version; three
+             timed runs, a stage split, one traced run (K1's device time,
+             the idle share), the decode window traced alone (its kernels
+             and copies to the host: only the transcript's), the same
+             logits decoded greedily and, greedy and beam, on the CPU
+             (tokens equal), K1's calls replayed against the plain version
+             and cuDNN.  Then ``ctc_decode_fixture``: the logits of
+             ``port_tools/ctc_decode_fixture.npz`` decoded on the card must
+             give the JAX package's stored tokens exactly.  Then
              ``ctc_falls``: ``synthetic_ctc`` from seeded weights, warmup
              off, 20 steps on one repeated batch: the loss must fall below
-             half its start.
+             half its start; then the batch decoded by the eval step (the
+             config's beam) and greedily, each one's WER, card and CPU
+             tokens equal on the same logits.
 10. trained  the trained medium RNN-T (committed npz) decodes its
              256-utterance eval split greedily at B=32; its WER must lie
              within 0.01 of the JAX package's greedy WER for the same weights;
@@ -118,10 +132,10 @@ device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
 device times of the replays; ``bound_ms`` counted from the recorded calls;
 K1's and K2's entries also hold ``us_per_step``, the per-step route's
 ``stepwise_ms`` and ``stepwise_us_per_step``, and ``paths``: these figures
-for each main path, serve, train, long and ds2), the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.  Every main path also asserts that
-K1's and K2's per-step route launched no time.  Without a CUDA card the
-script exits non-zero before it prints any result.
+for each main path, serve, train, long and ds2, K1's also ds2_serve), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every main
+path also asserts that K1's and K2's per-step route launched no time.
+Without a CUDA card the script exits non-zero before it prints any result.
 """
 
 from __future__ import annotations
@@ -268,6 +282,13 @@ CTC_LAUNCHES = {"k1": 10, "k2": 10, "k1_step": 0, "k2_step": 0, "k3": 0,
 CTC_STEPS = 3
 CTC_LSTM_STEPS = 10 * 836
 CTC_FALLS_STEPS = 20
+# The DS2 serve path: K1 launches once per LSTM direction (5 layers x 2) a
+# batch, and no other kernel.
+DS2_SERVE_LAUNCHES = {"k1": 10, "k2": 0, "k1_step": 0, "k2_step": 0,
+                      "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0}
+# Copies to the host allowed in the decode window: the transcript's tokens
+# and lengths at its end.
+DECODE_DTOH_COPIES = 2
 
 # K7 against its plain version: the same fp32 stencil, but K7 sums each
 # cell's three terms with one log (the largest plus the log of one plus the
@@ -1196,9 +1217,11 @@ def phase_k78(dev):
         torch.cuda.empty_cache()
 
 
-def stage_ms(tr, wav, lens, runs: int = 3):
-    """Median host-clock ms of features, encoder and greedy decode (joint
-    projection plus the loop), each ending in a synchronise."""
+def stage_ms(tr, wav, lens, runs: int = 3, model_key: str = "encoder_ms"):
+    """Median host-clock ms of features, the model (an RNN-T's encoder, a
+    CTC model's logits: ``model_key``) and the decode (an RNN-T's joint
+    projection plus the greedy loop, a CTC decoder), each ending in a
+    synchronise."""
     out = collections.defaultdict(list)
     for _ in range(runs):
         with torch.inference_mode():
@@ -1209,14 +1232,14 @@ def stage_ms(tr, wav, lens, runs: int = 3):
                 torch.as_tensor(lens, device=tr.device))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            f, f_lens = tr.model.encode(feats, flens)
+            x, x_lens = tr.outputs(feats, flens)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            tr.decode(f, f_lens)
+            tr.decode_outputs(x, x_lens)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
         out["features_ms"].append(1e3 * (t1 - t0))
-        out["encoder_ms"].append(1e3 * (t2 - t1))
+        out[model_key].append(1e3 * (t2 - t1))
         out["decode_ms"].append(1e3 * (t3 - t2))
     return {k: statistics.median(v) for k, v in out.items()}
 
@@ -2500,7 +2523,8 @@ def phase_train_ctc(dev):
                              f"{CTC_PLAIN_TOL}")
 
     _zero_counts()
-    eval_loss = float(train.eval_step_body(task)(state, batch)["loss"])
+    eval_loss = float(train.eval_step_body(task, decode=False)(
+        state, batch)["loss"])
     eval_launches = _read_counts()
     if not np.isfinite(eval_loss) or eval_launches["k7"] != 1 \
             or eval_launches["k8"] != 0:
@@ -2597,6 +2621,266 @@ def phase_ctc_falls(dev):
     if not (all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0]):
         raise AssertionError(f"the repeated-batch CTC loss did not fall to "
                              f"half: {losses}")
+    ctc_falls_decode(task, state, batch, data[0]["texts"])
+
+
+def ctc_falls_decode(task, state, batch, refs):
+    """The trained repeated batch decoded by the eval step (the config's
+    beam, W=8) and greedily: each one's WER; the model's logits decoded
+    on the card and on the CPU give equal tokens, greedy and beam."""
+    from myrtlespeech_tpu_torch.decoding.ctc_greedy import ctc_greedy_decode
+    from myrtlespeech_tpu_torch.decoding.wer import wer
+    from myrtlespeech_tpu_torch.run import train
+
+    blank = task.cfg.speech_to_text.post_process.blank_index
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = train.eval_step_body(task, decode=True)(state, batch)
+    eval_beam = (metrics["decoded_tokens"].cpu(),
+                 metrics["decoded_lens"].cpu())
+    eval_s = time.perf_counter() - t0
+    launches = _read_counts()
+    with torch.no_grad():
+        feats, flens = task.preprocess(batch["wav"], batch["wav_lens"])
+        logits, out_lens = state.model(feats, flens, False)
+        card = {"beam": task.decoder(logits, out_lens),
+                "greedy": ctc_greedy_decode(logits, out_lens, blank)}
+        logits_cpu, lens_cpu = logits.cpu(), out_lens.cpu()
+        cpu = {"beam": task.decoder(logits_cpu, lens_cpu),
+               "greedy": ctc_greedy_decode(logits_cpu, lens_cpu, blank)}
+
+    def texts(out):
+        toks, tl = (np.asarray(a.cpu()) for a in out)
+        return [task.alphabet.get_symbols(toks[i, :tl[i]])
+                for i in range(len(tl))]
+
+    rows = {n: rows_differing([a.cpu() for a in card[n]], cpu[n])
+            for n in card}
+    emit("ctc_falls_decode", config="synthetic_ctc", eval_seconds=eval_s,
+         eval_loss=float(metrics["loss"]), eval_launches=launches,
+         wer_beam=wer(refs, texts(eval_beam)),
+         wer_greedy=wer(refs, texts(card["greedy"])),
+         eval_beam_equals_card_beam=not rows_differing(eval_beam,
+                                                       card["beam"]),
+         card_cpu_rows_differing=rows,
+         examples=[[r, h] for r, h in zip(refs[:2], texts(eval_beam)[:2])])
+    no_stepwise(launches, "synthetic_ctc eval")
+    if launches["k7"] != 1 or launches["k8"] or not launches["k1"]:
+        raise AssertionError(f"the eval step's launches {launches}")
+    if rows["beam"] or rows["greedy"]:
+        raise AssertionError(f"card and CPU tokens differ on the same "
+                             f"logits in rows {rows}")
+
+
+def kernels_and_copies(spans):
+    """``(kernels, device-to-host copies, host-to-device copies)`` among a
+    trace's device events."""
+    copies = [n for n, _, _ in spans if n.startswith("Memcpy")]
+    kernels = [n for n, _, _ in spans
+               if not n.startswith(("Memcpy", "Memset"))]
+    return (kernels, [n for n in copies if "DtoH" in n],
+            [n for n in copies if "HtoD" in n])
+
+
+def rows_differing(got, want):
+    """Rows whose lengths or tokens differ, of two ``(tokens, lens)``."""
+    (gt, gl), (wt, wl) = ((np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                      else a) for a in x)
+                          for x in (got, want))
+    return [i for i in range(len(wl))
+            if gl[i] != wl[i] or not np.array_equal(gt[i, :wl[i]],
+                                                    wt[i, :wl[i]])]
+
+
+def phase_ds2_serve(dev):
+    """deep_speech_2_en at full width with seeded weights transcribes B=32
+    x 16.7 s of seeded noise through ``build_transcriber`` and the config's
+    own beam decoder (W=16, expand_topk 16, prune 1e-3): one warm-up and
+    three timed runs, K1 launched 10 times a batch and nothing else, no
+    plain version; a stage split (features, model, decode); one traced run
+    (K1's device time, the idle share); the decode window alone, traced: its
+    kernels (a frame) and copies to the host (only the transcript's, at the
+    end); the same logits decoded greedily, and by the port on the CPU,
+    greedy and beam: tokens equal.  K1's calls of one run replayed against
+    the plain version, the plain version's and cuDNN's device times.
+    Returns the ``ds2_serve`` path of K1's ``kernels`` entry."""
+    from myrtlespeech_tpu_torch.builders.build import random_params
+    from myrtlespeech_tpu_torch.decoding.ctc_greedy import ctc_greedy_decode
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+    from myrtlespeech_tpu_torch.run.infer import (build_transcriber,
+                                                  load_config, random_audio)
+
+    cfg = load_config("deep_speech_2_en")
+    pc = cfg.speech_to_text.post_process
+    t0 = time.perf_counter()
+    tr = build_transcriber(cfg, random_params(cfg, seed=0), device=str(dev))
+    setup_s = time.perf_counter() - t0
+    B, secs = CTC_BATCH, CTC_SECONDS
+    wav, lens = random_audio(B, secs, seed=0)
+    tr.transcribe(wav, lens)  # warm-up
+    times = []
+    with _plain_guard() as guard:
+        _zero_counts()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.transcribe(wav, lens)  # ends in a copy to the host
+            times.append(time.perf_counter() - t0)
+        launches = _read_counts()
+        stages = stage_ms(tr, wav, lens, model_key="model_ms")
+        traced_wall_ms, spans, kernel_spans, retries = trace_step(
+            lambda: tr.transcribe(wav, lens), DS2_SERVE_LAUNCHES)
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on the DS2 serve path: "
+                             f"{dict(guard.calls)}")
+    if launches != {n: 3 * c for n, c in DS2_SERVE_LAUNCHES.items()}:
+        raise AssertionError(f"launches over 3 DS2 batches: {launches}")
+    by_kernel = collections.Counter()
+    for name, s0, e0 in spans:
+        by_kernel[name[:80]] += (e0 - s0) / 1e3
+    busy = busy_ms(spans)
+
+    # The decode window alone, on the model's logits: its kernels and its
+    # copies, the final copy to the host included.
+    with torch.inference_mode():
+        feats, flens = tr.preprocess(torch.as_tensor(wav, device=dev),
+                                     torch.as_tensor(lens, device=dev))
+        logits, out_lens = tr.outputs(feats, flens)
+    T = logits.shape[1]
+    if tuple(logits.shape) != (B, CTC_LSTM_STEPS // 10, 29) \
+            or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite or "
+                             "of the wrong shape")
+
+    def decode_to_host():
+        with torch.inference_mode():
+            return tuple(a.cpu() for a in tr.decode_outputs(logits,
+                                                            out_lens))
+
+    beam_card = decode_to_host()
+    dec_wall_ms, dec_spans = device_trace(decode_to_host)
+    kernels, dtoh, htod = kernels_and_copies(dec_spans)
+    if len(dtoh) > DECODE_DTOH_COPIES:
+        raise AssertionError(f"the decode window copied to the host "
+                             f"{len(dtoh)} times: {dtoh}")
+    if rows_differing(beam_card, (out.tokens, out.lengths)):
+        raise AssertionError("the decode of the traced logits differs from "
+                             "the transcriber's")
+
+    # The same logits decoded greedily, and both decoders on the CPU.
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy_card = tuple(a.cpu() for a in ctc_greedy_decode(
+            logits, out_lens, pc.blank_index))
+        greedy_ms = 1e3 * (time.perf_counter() - t0)
+        logits_cpu, lens_cpu = logits.cpu(), out_lens.cpu()
+        t0 = time.perf_counter()
+        beam_cpu = tr.decode_outputs(logits_cpu, lens_cpu)
+        cpu_beam_s = time.perf_counter() - t0
+        greedy_cpu = ctc_greedy_decode(logits_cpu, lens_cpu, pc.blank_index)
+    cpu_rows = {"beam": rows_differing(beam_card, beam_cpu),
+                "greedy": rows_differing(greedy_card, greedy_cpu)}
+    if cpu_rows["beam"] or cpu_rows["greedy"]:
+        raise AssertionError(f"card and CPU tokens differ on the same "
+                             f"logits in rows {cpu_rows}")
+    tlens = beam_card[1].numpy()
+    V = logits.shape[2]
+    if not ((0 <= tlens) & (tlens <= T)).all() or not (
+            (0 <= beam_card[0].numpy()) & (beam_card[0].numpy() < V)).all():
+        raise AssertionError(f"bad tokens, lengths {tlens}")
+    del feats, logits, logits_cpu
+
+    # K1 on this path's own calls: against the plain version (the first
+    # call of each shape), the plain version and cuDNN over every call.
+    calls = record_many({"k1": (k, "lstm_fwd")},
+                        lambda: tr.transcribe(wav, lens))["k1"]
+    errs = {}
+    with torch.inference_mode():
+        for args in _first_per_shape(calls, lambda a: a[0].shape).values():
+            max_into(errs, k1_errors(k.lstm_fwd(*args),
+                                     k.lstm_fwd_reference(*args),
+                                     "DS2 serve"))
+
+        def plain_replay():
+            with torch.inference_mode():
+                for args in calls:
+                    k.lstm_fwd_reference(*args)
+
+        _, plain_spans = device_trace(plain_replay, or_events=True)
+    check_errors(errs, "DS2 serve")
+    library_ms, library = cudnn_replay(calls, "k1", dev, bidirectional=True)
+    works = [k1_work(*a[0].shape[:2], a[0].shape[2] // 4, a[5] is not None)
+             for a in calls]
+    bound_ms, bound_by = bound(sum(w[0] for w in works),
+                               sum(w[1] for w in works))
+    del calls
+    stepwise_ms = stepwise_trace(
+        lambda: tr.transcribe(wav, lens),
+        with_stepwise(DS2_SERVE_LAUNCHES, CTC_LSTM_STEPS))["k1"]
+    k1_ms = span_ms(kernel_spans["k1"])
+    figures = path_figures(
+        DS2_SERVE_LAUNCHES["k1"], k1_ms, CTC_LSTM_STEPS, stepwise_ms,
+        {"library_ms": library_ms, "library": library,
+         "plain_ms": span_ms(plain_spans), "plain_calls": len(works),
+         "bound_ms": bound_ms})
+    figures["max_abs_err"] = max(errs.values())
+    ms = 1e3 * statistics.median(times)
+    emit("ds2_serve", config="deep_speech_2_en", batch=B, seconds=secs,
+         decoder=f"beam W={pc.beam_width} expand_topk={pc.expand_topk} "
+                 f"prune={pc.prune_threshold}", setup_s=setup_s,
+         ms_per_batch=ms, ms_runs=[1e3 * t for t in times],
+         audio_s_per_s=B * secs / (ms / 1e3), **stages,
+         launches_per_batch=DS2_SERVE_LAUNCHES, traced_wall_ms=traced_wall_ms,
+         trace_retries=retries, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / traced_wall_ms,
+         device_events=len(spans), k1_device_ms=k1_ms,
+         device_ms_by_kernel=dict(by_kernel.most_common(10)), frames=T,
+         decode_wall_ms_traced=dec_wall_ms,
+         decode_device_busy_ms=busy_ms(dec_spans),
+         decode_kernels=len(kernels),
+         decode_kernels_per_frame=len(kernels) / T,
+         decode_dtoh_copies=len(dtoh), decode_htod_copies=len(htod),
+         decode_ms_per_frame=stages["decode_ms"] / T,
+         decode_kernels_by_name=dict(collections.Counter(
+             n[:60] for n in kernels).most_common(8)),
+         greedy_ms=greedy_ms, cpu_beam_s=cpu_beam_s,
+         card_cpu_rows_differing=cpu_rows, token_lens=tlens.tolist(),
+         greedy_token_lens=greedy_card[1].tolist(),
+         beam_greedy_rows_differing=len(rows_differing(beam_card,
+                                                       greedy_card)),
+         k1=dict(figures, errors=errs, tolerance=K1_TOL, bound_by=bound_by))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
+def phase_ctc_decode_fixture(dev):
+    """The port decodes the fixture's stored logits (B=4 x 836 x 29) on the
+    card with each stored decoder (``port_tools/ctc_decode_fixture.py``:
+    the configs' beam, every symbol expanded, the char-bigram LM, the word
+    bigram LM, greedy); every output must equal the JAX package's, stored
+    beside the logits, exactly."""
+    from port_tools import ctc_decode_fixture as fixture
+
+    with np.load(fixture.PATH) as z:
+        data = {name: z[name] for name in z.files}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fixture.port_decodes(data, dev)
+    seconds = time.perf_counter() - t0
+    rows = {name: rows_differing(out, (data[f"{name}_tokens"],
+                                       data[f"{name}_lens"]))
+            for name, out in got.items()}
+    emit("ctc_decode_fixture", shape=list(data["logits"].shape),
+         jax_version=str(data["jax_version"]), cases=sorted(got),
+         token_lens={n: o[1].tolist() for n, o in got.items()},
+         rows_differing=rows, seconds=seconds)
+    if any(rows.values()):
+        raise AssertionError(f"the card's decodes differ from the JAX "
+                             f"package's in rows {rows}")
 
 
 def phase_trained(dev):
@@ -2661,7 +2945,7 @@ def trained_loss(dev, npz: str):
                              device=str(dev))
     data = train.text_batches(SyntheticSpeech(task_config.eval_dataset),
                               task.alphabet, 32)
-    evaluate = train.eval_step_body(task)
+    evaluate = train.eval_step_body(task, decode=False)
     _zero_counts()
     losses = [float(evaluate(state, train.to_device(b, dev))["loss"])
               for b in data]
@@ -2715,6 +2999,8 @@ def main() -> int:
     k1["paths"]["long"], k234[0]["paths"]["long"], k56 = \
         phase_train_long(dev)
     k1["paths"]["ds2"], k234[0]["paths"]["ds2"], k78 = phase_train_ctc(dev)
+    k1["paths"]["ds2_serve"] = phase_ds2_serve(dev)
+    phase_ctc_decode_fixture(dev)
     for entry in (k1, k234[0]):
         entry["max_abs_err"] = max(p["max_abs_err"]
                                    for p in entry["paths"].values())

@@ -8,11 +8,13 @@ the CTC and transducer ``build_loss`` (``:213-275``; its
 ``weighted_reduce`` lives in ``ops/rnnt.py``),
 ``build_fused_transducer_loss`` (``:277-311``),
 :func:`build_joint_tail_loss` (``build_pallas_joint_loss``, ``:314-372``),
-``build_rnnt_decode_helpers`` and the greedy ``build_decoder``
-(``:395-488``), ``build_lr_schedule`` and ``build_optimizer``
-(``:510-563``), ``Task`` and ``build_task`` (without datasets, which the
-run-loop slice adds), and :func:`init_params`, which fills a model with
-seeded random weights drawn the way Flax's initialisers draw them.
+``validate`` (``:374-387``), ``build_rnnt_decode_helpers`` and
+``build_decoder`` for the CTC greedy and beam decoders (with their LMs) and
+the greedy RNN-T decoder (``:395-488``), ``build_lr_schedule`` and
+``build_optimizer`` (``:510-563``), ``Task`` and ``build_task`` (without
+datasets, which the run-loop slice adds), and :func:`init_params`, which
+fills a model with seeded random weights drawn the way Flax's initialisers
+draw them.
 
 Blank-index convention: the output vocabulary is
 ``max(len(alphabet), blank_index + 1)``.
@@ -21,6 +23,7 @@ Blank-index convention: the output vocabulary is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -29,6 +32,10 @@ from torch import nn
 
 from myrtlespeech_tpu_torch.config import schema as S
 from myrtlespeech_tpu_torch.data.alphabet import Alphabet
+from myrtlespeech_tpu_torch.decoding.ctc_beam import (WordLMTensors,
+                                                      ctc_beam_decode)
+from myrtlespeech_tpu_torch.decoding.ctc_greedy import ctc_greedy_decode
+from myrtlespeech_tpu_torch.decoding.lm import load_bigram_lm, load_word_lm
 from myrtlespeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
 from myrtlespeech_tpu_torch.models.cnn import conv_block_out_features
 from myrtlespeech_tpu_torch.models.deep_speech_2 import DeepSpeech2
@@ -204,16 +211,78 @@ def build_rnnt_decode_helpers(model: RNNT):
             model.init_state)
 
 
-def build_decoder(cfg: S.SpeechToTextConfig, model: RNNT) -> Callable:
-    """Build ``decode(f, f_lens, max_output_len=200) -> (tokens, lens)``.
+def is_transducer(cfg: S.SpeechToTextConfig) -> bool:
+    return isinstance(cfg.model, S.RNNTConfig)
 
-    Greedy RNN-T only in this slice.
+
+def validate(cfg: S.SpeechToTextConfig) -> None:
+    """Cross-field checks the reference's builders enforce."""
+    transducer_model = is_transducer(cfg)
+    transducer_loss = isinstance(cfg.loss, S.RNNTLossConfig)
+    if transducer_model != transducer_loss:
+        raise ValueError("RNNT model requires rnn_t_loss and vice versa")
+    transducer_decoder = isinstance(
+        cfg.post_process,
+        (S.RNNTGreedyDecoderConfig, S.RNNTBeamDecoderConfig))
+    if transducer_model != transducer_decoder:
+        raise ValueError("model family and decoder family must match")
+    if cfg.post_process.blank_index != cfg.loss.blank_index:
+        raise ValueError("decoder and loss blank_index must agree")
+
+
+def build_decoder(cfg: S.SpeechToTextConfig,
+                  model: Optional[RNNT] = None) -> Callable:
+    """Build ``decode(...) -> (tokens, lens)`` on the inputs' device.
+
+    A CTC decoder takes ``(logits, logit_lens)``; its LM tables are loaded
+    here and copied to a device once, at its first call there.  The greedy
+    RNN-T decoder takes ``(f, f_lens, max_output_len=200)`` (the encoder's
+    output) and drives ``model``'s prediction and joint nets.  The RNN-T
+    beam decoder raises ``NotImplementedError``.
     """
     pc = cfg.post_process
+    if isinstance(pc, S.CTCGreedyDecoderConfig):
+        return functools.partial(ctc_greedy_decode,
+                                 blank_index=pc.blank_index)
+    if isinstance(pc, S.CTCBeamDecoderConfig):
+        lm_bigram = None
+        if pc.lm_bigram_path is not None:
+            lm_bigram = torch.as_tensor(load_bigram_lm(
+                pc.lm_bigram_path, vocab_size=vocab_size(cfg)))
+        word_lm = None
+        if pc.word_lm_path is not None:
+            if pc.separator_index is None:
+                raise ValueError(
+                    "word_lm_path requires separator_index (the word "
+                    "boundary symbol the LM scores on)")
+            word_lm = WordLMTensors.from_word_lm(
+                load_word_lm(pc.word_lm_path))
+        on_device = {}  # device -> (lm_bigram, word_lm) there
+
+        def beam(logits, logit_lens):
+            dev = logits.device
+            if dev not in on_device:
+                on_device[dev] = (
+                    None if lm_bigram is None else lm_bigram.to(dev),
+                    None if word_lm is None else word_lm.to(dev))
+            bigram, words = on_device[dev]
+            return ctc_beam_decode(
+                logits, logit_lens, blank_index=pc.blank_index,
+                beam_width=pc.beam_width,
+                prune_threshold=pc.prune_threshold,
+                word_count_beta=pc.word_count_beta,
+                separator_index=pc.separator_index,
+                lm_alpha=pc.lm_alpha if bigram is not None else None,
+                lm_bigram=bigram,
+                word_lm_alpha=(pc.word_lm_alpha if words is not None
+                               else None),
+                word_lm=words, expand_topk=pc.expand_topk)
+
+        return beam
     if not isinstance(pc, S.RNNTGreedyDecoderConfig):
         raise NotImplementedError(
             f"{type(pc).__name__} is not ported yet: ROADMAP.md Queue 1 "
-            "(beam search: slice 2; CTC decoders: slice 3)")
+            "(RNN-T beam search)")
     predict_step, joint_fp_step, project_f, init_state_fn = \
         build_rnnt_decode_helpers(model)
 
@@ -454,8 +523,12 @@ def build_optimizer(cfg: S.TrainConfig, steps_per_epoch: int,
 @dataclasses.dataclass
 class Task:
     """What the train and eval steps need from one TaskConfig (the JAX
-    package's ``Task`` without datasets and decoder).  The transducer's
-    fused losses are None for a CTC task."""
+    package's ``Task`` without datasets).  The transducer's fused losses are
+    None for a CTC task.
+
+    ``decoder`` is a CTC task's decoder, ``(logits, logit_lens) ->
+    (tokens, lens)``, and None for a transducer, whose decoder drives the
+    model: ``build_decoder(cfg.speech_to_text, model)`` builds it."""
 
     cfg: S.TaskConfig
     alphabet: Alphabet
@@ -465,6 +538,7 @@ class Task:
     loss_fn: Callable
     lr_schedule: Callable[[int], float]
     steps_per_epoch: int
+    decoder: Optional[Callable]
     # The T-chunked joint+loss when the config forces it
     # (``RNNTLossConfig.fused_chunk_size``), else None.
     fused_loss: Optional[Callable] = None
@@ -476,7 +550,7 @@ class Task:
 
     @property
     def transducer(self) -> bool:
-        return isinstance(self.cfg.speech_to_text.model, S.RNNTConfig)
+        return is_transducer(self.cfg.speech_to_text)
 
     def build_model(self) -> nn.Module:
         return build_model(self.cfg.speech_to_text, self.dtype,
@@ -490,18 +564,17 @@ class Task:
 def build_task(cfg: S.TaskConfig, steps_per_epoch: int = 1000,
                dtype: Optional[torch.dtype] = None) -> Task:
     stt = cfg.speech_to_text
-    transducer = isinstance(stt.model, S.RNNTConfig)
-    if transducer != isinstance(stt.loss, S.RNNTLossConfig):
-        raise ValueError(f"{type(stt.model).__name__} cannot train with "
-                         f"{type(stt.loss).__name__}")
+    validate(stt)
     dtype = dtype or getattr(torch, cfg.train_config.compute_dtype)
+    transducer = is_transducer(stt)
     task = Task(
         cfg=cfg, alphabet=Alphabet(stt.alphabet), dtype=dtype,
         in_features=preprocess_out_features(stt.pre_process_steps),
         preprocess=build_preprocess(stt.pre_process_steps),
         loss_fn=build_loss(stt),
         lr_schedule=build_lr_schedule(cfg.train_config, steps_per_epoch),
-        steps_per_epoch=steps_per_epoch)
+        steps_per_epoch=steps_per_epoch,
+        decoder=None if transducer else build_decoder(stt))
     if transducer:
         task.fused_loss = build_fused_transducer_loss(stt)
         task.fused_loss_auto = build_fused_transducer_loss(stt, force=True)

@@ -1,12 +1,19 @@
-"""Serving entry point: waveforms -> transcripts with the RNN-T greedy decoder.
+"""Serving entry point: waveforms -> transcripts.
 
 Port of the decode half of ``myrtlespeech_tpu/run/train.py::eval_step_body``
-(``:278-313``): features -> ``RNNT.encode`` -> ``joint_project_f`` -> greedy
-decode, under ``torch.inference_mode()``.  Every LSTM layer of the encoder and
-of the prediction net runs through K1 (``ops/cuda/lstm_kernel.py``) on the
-card.
+(``:278-326``), under ``torch.inference_mode()``:
+
+- an RNN-T: features -> ``RNNT.encode`` -> ``joint_project_f`` -> greedy
+  decode;
+- a CTC model (DeepSpeech2): features -> the model's logits -> the config's
+  CTC decoder (greedy, or prefix beam search with its LMs).
+
+Every LSTM layer runs through K1 (``ops/cuda/lstm_kernel.py``) on the card;
+the decoders are PyTorch on the card, and the only copy to the host is the
+transcript's at the end.
 
     python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_en --batch 32 --seconds 5
+    python -m myrtlespeech_tpu_torch.run.infer --config deep_speech_2_en --batch 32 --seconds 16.7
 
 runs a config of ``myrtlespeech_tpu_torch/configs`` with seeded random
 weights on seeded random audio and prints one JSON line of timings.
@@ -26,6 +33,7 @@ import torch
 
 from myrtlespeech_tpu_torch.builders.build import (build_decoder, build_model,
                                                    build_preprocess,
+                                                   is_transducer,
                                                    preprocess_out_features,
                                                    random_params)
 from myrtlespeech_tpu_torch.config import schema as S
@@ -45,13 +53,13 @@ def resolve_device(device: str = "cuda") -> torch.device:
 
 @dataclasses.dataclass
 class Transcription:
-    tokens: torch.Tensor  # (B, max_output_len) int32, on the model's device
+    tokens: torch.Tensor  # (B, max_output_len or T') int32, on the device
     lengths: torch.Tensor  # (B,) int32
     texts: List[str]
 
 
 class Transcriber:
-    """An RNN-T task config with its weights, ready to transcribe batches."""
+    """A task config with its weights, ready to transcribe batches."""
 
     def __init__(self, task_config: S.TaskConfig,
                  params: Mapping[str, torch.Tensor], device: torch.device):
@@ -64,19 +72,37 @@ class Transcriber:
             stt, self.dtype, preprocess_out_features(stt.pre_process_steps))
         self.model.load_state_dict(params)
         self.model.to(device).eval()
+        self.transducer = is_transducer(stt)
         self.decode = build_decoder(stt, self.model)
+
+    def outputs(self, feats, flens):
+        """What the decoder reads, with its lengths: the encoder's output
+        (RNN-T) or the logits (CTC)."""
+        if self.transducer:
+            return self.model.encode(feats, flens)
+        return self.model(feats, flens, False)
+
+    def decode_outputs(self, x, x_lens, max_output_len: int = 200):
+        """``(tokens, lengths)`` from :meth:`outputs`.  ``max_output_len``
+        caps an RNN-T's symbols; a CTC decoder returns up to one symbol a
+        frame, as the JAX package's eval step decodes it."""
+        if self.transducer:
+            return self.decode(x, x_lens, max_output_len=max_output_len)
+        return self.decode(x, x_lens)
 
     def transcribe(self, wav, wav_lens,
                    max_output_len: int = 200) -> Transcription:
-        """``wav (B, S)`` float samples, ``wav_lens (B,)`` valid counts."""
+        """``wav (B, S)`` float samples, ``wav_lens (B,)`` valid counts.
+
+        ``max_output_len`` caps an RNN-T's symbols only: a CTC model's
+        transcript is never capped (up to one symbol a frame)."""
         with torch.inference_mode():
             wav = torch.as_tensor(wav, dtype=torch.float32,
                                   device=self.device)
             wav_lens = torch.as_tensor(wav_lens, device=self.device)
             feats, flens = self.preprocess(wav, wav_lens)
-            f, f_lens = self.model.encode(feats, flens)
-            tokens, lens = self.decode(f, f_lens,
-                                       max_output_len=max_output_len)
+            tokens, lens = self.decode_outputs(*self.outputs(feats, flens),
+                                               max_output_len=max_output_len)
         toks, ls = tokens.cpu().numpy(), lens.cpu().numpy()
         texts = [self.alphabet.get_symbols(toks[i, :ls[i]])
                  for i in range(len(ls))]
@@ -93,8 +119,9 @@ def build_transcriber(task_config: S.TaskConfig,
     float32 on the card: TF32 is switched off for matmuls and cuDNN.
     """
     dev = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return Transcriber(task_config, params, dev)
 
 

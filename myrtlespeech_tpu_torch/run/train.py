@@ -1,9 +1,10 @@
-"""Training entry point: the RNN-T and CTC train steps and the eval loss.
+"""Training entry point: the RNN-T and CTC train steps and the eval step.
 
 Port of ``myrtlespeech_tpu/run/train.py``: ``TrainState``, ``init_state``,
 ``_forward``, ``_select_joint_path``, ``train_step_body``,
-``make_train_step`` and the loss of ``eval_step_body``.  PyTorch runs
-eagerly, so the step is a plain function that updates the state in place:
+``make_train_step`` and ``eval_step_body`` (the loss and the decode).
+PyTorch runs eagerly, so the step is a plain function that updates the
+state in place:
 
     preprocess (SpecAugment at train time) -> RNNT.encode -> RNNT.predict
     -> joint path -> lattice (K3, K4) -> backward -> clip, L2, Adam
@@ -46,8 +47,8 @@ import torch
 from torch import nn
 
 from myrtlespeech_tpu_torch.builders.build import (Optimizer, Task,
-                                                   build_task, init_params,
-                                                   vocab_size)
+                                                   build_decoder, build_task,
+                                                   init_params, vocab_size)
 from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, joint_kernel,
                                              lstm_kernel, rnnt_kernel)
 from myrtlespeech_tpu_torch.run.infer import load_config, resolve_device
@@ -158,17 +159,26 @@ def _forward(task: Task, model: nn.Module, batch: Batch, train: bool,
                             weights=_batch_weights(batch))
         return loss, (logits, out_lens)
     f, f_lens = model.encode(feats, flens, train)
+    loss, logits = _transducer_loss(task, model, f, f_lens, batch, train)
+    return loss, (logits, f_lens)
+
+
+def _transducer_loss(task: Task, model: nn.Module, f: torch.Tensor,
+                     f_lens: torch.Tensor, batch: Batch, train: bool
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """predict -> joint path -> loss from the encoder's output: ``(loss,
+    logits)``, ``logits`` None on a fused path."""
     g = model.predict(batch["labels"], batch["label_lens"], train)
     fused, chunk = _select_joint_path(task, f, g, backward=train)
     if fused is not None:
         loss = fused(model, f, f_lens, g, batch["labels"],
                      batch["label_lens"], train, chunk_size=chunk,
                      weights=_batch_weights(batch))
-        return loss, (None, f_lens)
+        return loss, None
     logits = model.joint(f, g, train)
     loss = task.loss_fn(logits, f_lens, batch["labels"], batch["label_lens"],
                         weights=_batch_weights(batch))
-    return loss, (logits, f_lens)
+    return loss, logits
 
 
 def train_step_body(task: Task) -> Callable:
@@ -195,15 +205,37 @@ def make_train_step(task: Task) -> Callable:
     return train_step_body(task)
 
 
-def eval_step_body(task: Task) -> Callable:
-    """``eval_step(state, batch) -> {"loss"}``: the eval-mode loss (no
-    SpecAugment, BatchNorm's running statistics, no gradient), as the JAX
-    package's eval step computes it."""
+def eval_step_body(task: Task, decode: bool = True,
+                   max_output_len: int = 200) -> Callable:
+    """``eval_step(state, batch) -> metrics``: the eval-mode loss (no
+    SpecAugment, BatchNorm's running statistics, no gradient) and, with
+    ``decode``, the config's decoder's ``decoded_tokens`` and
+    ``decoded_lens``, as the JAX package's eval step computes them.  A
+    transducer decodes the encoder output that its loss used (up to
+    ``max_output_len`` symbols), a CTC model its logits.  Everything stays
+    on the device."""
 
     def eval_step(state: TrainState, batch: Batch):
         with torch.no_grad():
-            loss, _ = _forward(task, state.model, batch, False)
-        return {"loss": loss}
+            if task.transducer and decode:
+                # The encoder runs once, for the loss and the decoder.
+                feats, flens = task.preprocess(batch["wav"],
+                                               batch["wav_lens"])
+                f, f_lens = state.model.encode(feats, flens)
+                loss, _ = _transducer_loss(task, state.model, f, f_lens,
+                                           batch, False)
+                decoder = build_decoder(task.cfg.speech_to_text,
+                                        state.model)
+                decoded = decoder(f, f_lens, max_output_len=max_output_len)
+            else:
+                loss, (logits, out_lens) = _forward(task, state.model, batch,
+                                                    False)
+                if decode:
+                    decoded = task.decoder(logits, out_lens)
+        metrics = {"loss": loss}
+        if decode:
+            metrics["decoded_tokens"], metrics["decoded_lens"] = decoded
+        return metrics
 
     return eval_step
 

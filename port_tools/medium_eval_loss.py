@@ -86,7 +86,7 @@ def port_figures(data, device: str = "cpu"):
     task = build_task(task_config, steps_per_epoch=1)
     state = train.init_state(task, params=params_from_npz(NPZ, task_config),
                              device=device)
-    evaluate = train.eval_step_body(task)
+    evaluate = train.eval_step_body(task, decode=False)
     losses = [float(evaluate(state, train.to_device(b, device))["loss"])
               for b in data]
     loss, _ = train._forward(task, state.model,

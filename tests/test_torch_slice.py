@@ -75,9 +75,13 @@ def test_port_imports_no_jax():
         "import myrtlespeech_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import port_tools.ctc_decode_fixture\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'myrtlespeech_tpu'))\n"
         "assert not bad, bad\n"
+        "for m in ('decoding.ctc_greedy', 'decoding.ctc_beam', 'decoding.lm',\n"
+        "          'builders.build', 'run.infer', 'run.train'):\n"
+        "    assert 'myrtlespeech_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('myrtlespeech_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
