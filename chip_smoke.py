@@ -126,6 +126,30 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              within 0.01 of the JAX package's greedy WER for the same weights;
              its eval loss over the split and the gradient norm of the first
              batch must lie within tolerance of the JAX package's.
+    After ``trained``, the run loop (``run/train.py::fit``, the bucketed
+    loader, checkpoints, the CLI), on ``deep_speech_2_en`` and ``rnn_t_en``
+    at full width with their datasets swapped for the synthetic corpus:
+             ``fit_ds2``: the CLI in a subprocess (``--guarded-cli``, which
+             counts the plain versions there) trains ``deep_speech_2_en``
+             one epoch of 8 batches of 32 with ``--checkpoint_dir`` and
+             ``--log_dir``, then decodes the 64-utterance eval split by its
+             beam; K1/K2/K7/K8 10/10/1/1 launches a step, no plain version;
+             steps, step ms, loader wait, audio-s/s, eval ms, the reports
+             (finite losses and WER), the checkpoint's ms and bytes.
+             ``resume_ds2``: in-process, an uninterrupted fit against one
+             stopped after 3 batches, saved, restored through the CLI's
+             ``_restore_state`` and resumed: the final parameters,
+             BatchNorm statistics, optimizer state, step and generator
+             bit-equal, or the nondeterministic operation named and the
+             difference within ``RESUME_RTOL``; 3 resumed steps traced (the
+             device's idle share); the fit's batches through the bare train
+             step, and the fit with its loader in the main thread; then
+             ``--eval_only`` through the CLI from the resumed checkpoint
+             gives the fit's WER.  ``fit_rnnt``: ``rnn_t_en`` trains 4
+             batches of 16 through ``fit`` and decodes one greedily: the
+             joint path taken at each batch shape, K1-K4 7/7/1/1 a step (K5,
+             K6 where the joint tail is taken), finite losses and WER.
+    ``fit_phases(dev)`` runs these three alone (after ``phase_build()``).
 
 Then a ``kernels`` line (one entry per ported kernel: ``ms`` is the kernel's
 device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
@@ -2974,11 +2998,437 @@ def trained_loss(dev, npz: str):
                              f"{JAX_GRAD_NORM}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# The run loop: fit, the bucketed loader, checkpoints and the CLI.
+# ---------------------------------------------------------------------------
+
+# deep_speech_2_en with its LibriSpeech datasets swapped for the synthetic
+# corpus (2-8 words, some 1-4 s an utterance): 256 train and 64 eval
+# utterances, batches of 32 (the config's).  A run takes FIT_BATCHES train
+# batches of one epoch (``--max_batches``) and the eval split's 2 packed
+# batches, decoded by the config's beam (W=16).
+FIT_TRAIN_LEN, FIT_EVAL_LEN, FIT_BATCHES = 256, 64, 8
+# A DS2 train step launches K1 and K2 once per LSTM direction, K7 and K8
+# once; an eval batch K1 10 times and K7 once (the eval loss).
+FIT_DS2_STEP = {"k1": 10, "k2": 10, "k3": 0, "k4": 0, "k5": 0, "k6": 0,
+                "k7": 1, "k8": 1}
+FIT_DS2_EVAL = {"k1": 10, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0,
+                "k7": 1, "k8": 0}
+# resume_ds2 stops its first fit after FIT_STOP batches and resumes it.
+FIT_STOP = 3
+# Where the resumed state is not bit-equal to the uninterrupted one, the
+# operation that is not deterministic is named (``resume_ds2``) and each
+# tensor of the state must lie within RESUME_RTOL of its largest magnitude
+# (PERF.md section 6).
+RESUME_RTOL = 1e-4
+# rnn_t_en on the synthetic corpus: FIT_RNNT_BATCHES train batches of 16,
+# one eval batch of 16 decoded greedily.  A train step launches K1 and K2
+# once per LSTM layer, K3 and K4 once (the full joint fits).
+FIT_RNNT_BATCH, FIT_RNNT_BATCHES = 16, 4
+FIT_RNNT_STEP = {"k1": 7, "k2": 7, "k3": 1, "k4": 1, "k5": 0, "k6": 0,
+                 "k7": 0, "k8": 0}
+
+
+def _synthetic_datasets(cfg, n_train: int, n_eval: int):
+    from myrtlespeech_tpu_torch.config import schema as S
+
+    return S.replace(
+        cfg, train_dataset=S.SyntheticSpeechConfig(dataset_len=n_train,
+                                                   split="train"),
+        eval_dataset=S.SyntheticSpeechConfig(dataset_len=n_eval,
+                                             split="eval"))
+
+
+def guarded_cli(argv) -> int:
+    """``run/cli.py``'s ``main(argv)`` with the plain versions counted
+    (``--guarded-cli``: ``fit_ds2`` and ``resume_ds2`` run the CLI so, in a
+    subprocess); its last line is ``{"plain_calls": {...}}``."""
+    from myrtlespeech_tpu_torch.run import cli
+
+    with _plain_guard() as guard:
+        rc = cli.main(argv)
+    print(json.dumps({"plain_calls": dict(guard.calls)}), flush=True)
+    return rc
+
+
+def run_cli(args, timeout: int = 600):
+    """The CLI in a subprocess under ``guarded_cli``: ``(reports, wall_s,
+    stdout)``.  Fails if it exits non-zero or a plain version ran."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--guarded-cli", *args],
+        capture_output=True, text=True, timeout=timeout)
+    wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the CLI exited {out.returncode}: "
+                             f"{out.stderr[-4000:]}")
+    head, last = out.stdout.rstrip().rsplit("\n", 1)
+    plain = json.loads(last)["plain_calls"]
+    if plain:
+        raise AssertionError(f"plain versions ran in the CLI: {plain}")
+    reports = json.loads(head[head.rindex("\n{\n") + 1:])
+    return reports, wall_s, out.stdout
+
+
+def _times(reports, stage: str, first: int = 1):
+    """Median step ms and mean loader-wait ms of a stage's batches from
+    ``first`` on (ThroughputMonitor's lists)."""
+    step = reports[f"{stage}_step_ms"][first:]
+    wait = reports[f"{stage}_wait_ms"][first:]
+    return statistics.median(step), statistics.fmean(wait)
+
+
+def phase_fit_ds2(dev, workdir: str):
+    """deep_speech_2_en at full width trains one epoch on the synthetic
+    corpus through the CLI in a subprocess (``--checkpoint_dir``,
+    ``--log_dir``): FIT_BATCHES train batches, then the eval split decoded
+    by the beam; K1/K2/K7/K8 10/10/1/1 launches a step, no plain version;
+    steps, the median step ms over steps 2-8, audio-s/s, the loader wait,
+    eval ms, the reports, the checkpoint's ms and bytes."""
+    import csv
+
+    from myrtlespeech_tpu_torch.config.serde import save_json
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    cfg_path = os.path.join(workdir, "ds2_fit.json")
+    save_json(_synthetic_datasets(load_config("deep_speech_2_en"),
+                                  FIT_TRAIN_LEN, FIT_EVAL_LEN), cfg_path)
+    ck, log = os.path.join(workdir, "ds2_ck"), os.path.join(workdir, "log")
+    reports, wall_s, _ = run_cli(
+        ["--config", cfg_path, "--epochs", "1", "--max_batches",
+         str(FIT_BATCHES), "--checkpoint_dir", ck, "--log_dir", log])
+    with open(os.path.join(log, "metrics.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    train_rows = [r for r in rows if r["stage"] == "train"]
+    losses = [float(r["loss"]) for r in train_rows]
+    step_ms, wait_ms = _times(reports, "train")
+    eval_ms = sum(reports["eval_step_ms"]) + sum(reports["eval_wait_ms"])
+    want_train = {k: n * FIT_BATCHES for k, n in FIT_DS2_STEP.items()}
+    n_eval = len(reports["eval_step_ms"])
+    want_eval = {k: n * n_eval for k, n in FIT_DS2_EVAL.items()}
+    emit("fit_ds2", config="deep_speech_2_en", datasets="synthetic",
+         train_utterances=FIT_TRAIN_LEN, eval_utterances=FIT_EVAL_LEN,
+         batch=32, steps=len(train_rows), losses=losses,
+         step_ms_median_2_8=step_ms, step_ms=reports["train_step_ms"],
+         loader_wait_ms_mean_2_8=wait_ms, wait_ms=reports["train_wait_ms"],
+         train_audio_s_per_s=reports["train_audio_sec_per_sec"],
+         eval_batches=n_eval, eval_ms=eval_ms,
+         eval_step_ms=reports["eval_step_ms"],
+         train_mean_loss=reports.get("train_mean_loss"),
+         eval_mean_loss=reports.get("eval_mean_loss"),
+         wer=reports.get("wer"), cer=reports.get("cer"),
+         checkpoint_save_ms=reports.get("checkpoint_save_ms"),
+         checkpoint_bytes=reports.get("checkpoint_bytes"),
+         train_launches=reports["train_launches"],
+         eval_launches=reports["eval_launches"], cli_wall_s=wall_s,
+         plain_calls=0)
+    if len(train_rows) != FIT_BATCHES or n_eval != 2:
+        raise AssertionError(f"{len(train_rows)} train and {n_eval} eval "
+                             f"batches, expected {FIT_BATCHES} and 2")
+    if reports["train_launches"] != want_train \
+            or reports["eval_launches"] != want_eval:
+        raise AssertionError(f"launches {reports['train_launches']}, "
+                             f"{reports['eval_launches']}; expected "
+                             f"{want_train}, {want_eval}")
+    for key in ("train_mean_loss", "eval_mean_loss", "wer"):
+        if not np.isfinite(reports.get(key, float("nan"))):
+            raise AssertionError(f"report {key} missing or not finite: "
+                                 f"{reports.get(key)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"fit losses not finite: {losses}")
+
+
+def _state_tensors(state) -> dict:
+    """A train state's tensors by name: the model's parameters and buffers,
+    the optimizer's state, the step and the generator's state."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.inner.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"optimizer.{i}.{k}"] = torch.as_tensor(v).clone()
+    out["step"] = torch.tensor(state.step)
+    out["gen"] = state.gen.get_state()
+    return out
+
+
+def _compare_states(a: dict, b: dict) -> dict:
+    """Bit-equality of two ``_state_tensors``, and each category's largest
+    difference, absolute and over the tensor's largest magnitude."""
+    diff = {"bit_equal": True, "unequal": []}
+    for k in a:
+        if torch.equal(a[k], b[k]):
+            continue
+        diff["bit_equal"] = False
+        diff["unequal"].append(k)
+        if not a[k].is_floating_point():
+            diff["integer_mismatch"] = k
+            continue
+        cat = ("buffer" if k.endswith((".mean", ".var")) else
+               k.split(".", 1)[0])
+        d = (a[k].double() - b[k].double()).abs().max().item()
+        scale = max(b[k].double().abs().max().item(), 1e-30)
+        prev = diff.setdefault(cat, {"max_abs": 0.0, "max_rel": 0.0})
+        prev["max_abs"] = max(prev["max_abs"], d)
+        prev["max_rel"] = max(prev["max_rel"], d / scale)
+    diff["n_unequal"] = len(diff.pop("unequal"))
+    return diff
+
+
+def find_nondeterminism(straight, resumed, first: dict) -> dict:
+    """Where a resumed fit's state is not bit-equal to the uninterrupted
+    one's (``first``): whether a second uninterrupted fit differs too, and
+    whether both fits agree bit for bit with cuDNN held to deterministic
+    algorithms, and then with ``torch.use_deterministic_algorithms`` (whose
+    warnings name the operations that have no deterministic version)."""
+    import warnings
+
+    out = {"straight_twice": _compare_states(straight(), first)}
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["cudnn_deterministic"] = _compare_states(resumed("det_ck"),
+                                                     straight())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out["torch_deterministic"] = _compare_states(
+                resumed("det_all_ck"), straight())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    out["no_deterministic_version"] = sorted(
+        {str(w.message).split(".")[0] for w in caught
+         if "deterministic" in str(w.message)})
+    out["op"] = (
+        "cuDNN's convolution (its default algorithms)"
+        if out["cudnn_deterministic"]["bit_equal"] else
+        "operations torch's deterministic mode replaces: "
+        + "; ".join(out["no_deterministic_version"] or ["none named"])
+        if out["torch_deterministic"]["bit_equal"] else
+        "not found: neither deterministic mode makes the resume bit-equal")
+    return out
+
+
+def phase_resume_ds2(dev, workdir: str):
+    """In-process: deep_speech_2_en on the fit's corpus, an uninterrupted
+    1-epoch fit of FIT_BATCHES batches against a fit stopped by
+    ``StopEpochAfter(FIT_STOP)``, saved, restored through the CLI's
+    ``_restore_state`` and resumed (one traced window of its steps, for the
+    device's idle share); their final states compared bit for bit.  Where
+    they differ, the nondeterministic operation is sought
+    (``find_nondeterminism``).  Then ``--eval_only`` through the CLI from
+    the resumed fit's checkpoint: its WER must equal the fit's last.  Also
+    the fit's step time against each of its batches through the bare train
+    step, and against a fit whose loader runs in the main thread."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.config.serde import save_json
+    from myrtlespeech_tpu_torch.data.batch import BucketedLoader
+    from myrtlespeech_tpu_torch.run import callbacks as C
+    from myrtlespeech_tpu_torch.run import cli, train
+    from myrtlespeech_tpu_torch.run.checkpoint import (CheckpointCallback,
+                                                       CheckpointManager)
+    from myrtlespeech_tpu_torch.run.infer import load_config
+    from myrtlespeech_tpu_torch.utils import trace
+
+    cfg = _synthetic_datasets(load_config("deep_speech_2_en"),
+                              FIT_TRAIN_LEN, FIT_EVAL_LEN)
+    cfg_path = os.path.join(workdir, "ds2_resume.json")
+    save_json(cfg, cfg_path)
+    task = build_task(cfg, steps_per_epoch=FIT_TRAIN_LEN // 32)
+
+    def straight(decode: bool):
+        wer = C.ReportDecoderWER(task.alphabet)
+        h = train.fit(task, epochs=1, decode_eval=decode, device=str(dev),
+                      callbacks=[C.StopEpochAfter(FIT_BATCHES), wer,
+                                 C.ThroughputMonitor()])
+        return h
+
+    def interrupted(ck: str, profile_dir=None):
+        mgr = CheckpointManager(ck)
+        train.fit(task, epochs=1, decode_eval=False, device=str(dev),
+                  callbacks=[C.StopEpochAfter(FIT_STOP),
+                             CheckpointCallback(mgr)])
+        state, epoch, skip = cli._restore_state(task, mgr, str(dev))
+        cbs = [C.StopEpochAfter(FIT_BATCHES), CheckpointCallback(mgr),
+               C.ReportDecoderWER(task.alphabet), C.ReportMeanBatchLoss()]
+        prof = None
+        if profile_dir:
+            prof = C.ProfilerCallback(profile_dir, start_step=FIT_STOP + 1,
+                                      num_steps=3)
+            cbs.append(prof)
+        h = train.fit(task, epochs=1, initial_state=state, start_epoch=epoch,
+                      skip_batches=skip, device=str(dev), callbacks=cbs,
+                      decode_eval=profile_dir is not None)
+        return h, (epoch, skip), prof
+
+    with _plain_guard() as guard:
+        a = straight(decode=True)
+        sa = _state_tensors(a.state["train_state"])
+        ck = os.path.join(workdir, "resume_ck")
+        prof_dir = os.path.join(workdir, "fit_trace")
+        b, cursor, prof = interrupted(ck, prof_dir)
+        sb = _state_tensors(b.state["train_state"])
+        diff = _compare_states(sb, sa)
+        nondeterministic = None
+        if not diff["bit_equal"]:
+            nondeterministic = find_nondeterminism(
+                lambda: _state_tensors(straight(
+                    decode=False).state["train_state"]),
+                lambda d: _state_tensors(interrupted(os.path.join(
+                    workdir, d))[0].state["train_state"]), sa)
+        # The fit's own batches through the bare train step, one at a time.
+        bare_ms = []
+        loader = BucketedLoader(task.train_dataset, task.alphabet, 32,
+                                      seed=cfg.train_config.seed,
+                                      num_workers=4,
+                                      bucket_growth=cfg.train_config
+                                      .audio_bucket_growth,
+                                      label_bucket=cfg.train_config
+                                      .label_bucket)
+        loader.set_epoch(0)
+        state = b.state["train_state"]
+        step = train.make_train_step(task)
+        for i, batch in zip(range(FIT_BATCHES), loader):
+            arrays = train.to_device(batch, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, arrays)
+            float(m["loss"])
+            bare_ms.append(1e3 * (time.perf_counter() - t0))
+        # The same fit with the loader in the main thread (no prefetch
+        # thread, no sample-fetch threads): whether the loader's threads
+        # slow the step they overlap.
+        sync = train.fit(task, epochs=1, decode_eval=False, device=str(dev),
+                         loader_kwargs={"prefetch": 0, "num_workers": 0},
+                         callbacks=[C.StopEpochAfter(FIT_BATCHES),
+                                    C.ThroughputMonitor()])
+    if guard.calls:
+        raise AssertionError(f"plain versions ran in resume_ds2: "
+                             f"{dict(guard.calls)}")
+    busy = trace.busy_ms(prof_dir)
+    fit_ms = a.state["reports"]["train_step_ms"]
+    wer = b.state["reports"]["wer"]
+    eval_reports, eval_wall_s, _ = run_cli(
+        ["--config", cfg_path, "--eval_only", "--checkpoint_dir", ck])
+    emit("resume_ds2", config="deep_speech_2_en", batches=FIT_BATCHES,
+         stopped_after=FIT_STOP, cursor=list(cursor),
+         step=int(sb["step"]), **diff,
+         nondeterministic=nondeterministic, resume_rtol=RESUME_RTOL,
+         fit_wer=wer, straight_wer=a.state["reports"].get("wer"),
+         eval_only_wer=eval_reports.get("wer"), eval_only_s=eval_wall_s,
+         fit_step_ms=fit_ms, bare_step_ms=bare_ms,
+         fit_step_ms_median_2_8=statistics.median(fit_ms[1:]),
+         bare_step_ms_median_2_8=statistics.median(bare_ms[1:]),
+         fit_wait_ms=a.state["reports"]["train_wait_ms"],
+         sync_loader_step_ms=sync.state["reports"]["train_step_ms"],
+         sync_loader_wait_ms=sync.state["reports"]["train_wait_ms"],
+         sync_loader_step_ms_median_2_8=_times(sync.state["reports"],
+                                               "train")[0],
+         sync_loader_wait_ms_mean_2_8=_times(sync.state["reports"],
+                                             "train")[1],
+         traced_steps=3, traced_wall_ms=prof.wall_ms, traced_busy_ms=busy,
+         idle_share=1 - busy / prof.wall_ms, plain_calls=0)
+    if int(sb["step"]) != FIT_BATCHES or cursor != (0, FIT_STOP):
+        raise AssertionError(f"resumed at {cursor}, ended at step "
+                             f"{int(sb['step'])}")
+    if not diff["bit_equal"]:
+        if "integer_mismatch" in diff:
+            raise AssertionError(f"the resumed state's "
+                                 f"{diff['integer_mismatch']} differs")
+        worst = max((v["max_rel"] for v in diff.values()
+                     if isinstance(v, dict)), default=0.0)
+        if worst > RESUME_RTOL:
+            raise AssertionError(f"the resumed state differs by {worst} "
+                                 f"relative, over {RESUME_RTOL}")
+    if eval_reports.get("wer") != wer or not np.isfinite(wer):
+        raise AssertionError(f"--eval_only WER {eval_reports.get('wer')} "
+                             f"against the fit's {wer}")
+
+
+def phase_fit_rnnt(dev):
+    """rnn_t_en at full width trains through ``fit`` on the synthetic corpus:
+    FIT_RNNT_BATCHES train batches of FIT_RNNT_BATCH and one eval batch
+    decoded greedily; the joint path the planner took for each batch shape,
+    K1-K4 launches a step (K5/K6 where the joint tail is taken), no plain
+    version, finite losses and WER."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.run import callbacks as C
+    from myrtlespeech_tpu_torch.run import train
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    cfg = _synthetic_datasets(load_config("rnn_t_en"),
+                              FIT_RNNT_BATCH * FIT_RNNT_BATCHES,
+                              FIT_RNNT_BATCH)
+    task = build_task(cfg, steps_per_epoch=FIT_RNNT_BATCHES)
+    paths = []
+    select = train._select_joint_path
+
+    def recording(task_, f, g, backward):
+        fused, chunk = select(task_, f, g, backward)
+        name = ("full joint" if fused is None else
+                "joint tail" if fused is task_.joint_tail_loss else
+                f"chunked ({chunk})")
+        paths.append({"stage": "train" if backward else "eval",
+                      "B": f.shape[0], "T'": f.shape[1], "U+1": g.shape[1],
+                      "path": name})
+        return fused, chunk
+
+    train._select_joint_path = recording
+    try:
+        with _plain_guard() as guard:
+            h = train.fit(task, epochs=1, batch_size=FIT_RNNT_BATCH,
+                          device=str(dev),
+                          callbacks=[C.StopEpochAfter(FIT_RNNT_BATCHES),
+                                     C.ReportMeanBatchLoss(),
+                                     C.ReportDecoderWER(task.alphabet),
+                                     C.ThroughputMonitor(),
+                                     C.KernelLaunches()])
+    finally:
+        train._select_joint_path = select
+    r = h.state["reports"]
+    steps = len(r["train_step_ms"])
+    tail = sum(p["path"] == "joint tail" for p in paths
+               if p["stage"] == "train")
+    want = dict({k: n * steps for k, n in FIT_RNNT_STEP.items()},
+                k5=tail, k6=tail)
+    emit("fit_rnnt", config="rnn_t_en", datasets="synthetic",
+         batch=FIT_RNNT_BATCH, steps=steps, joint_paths=paths,
+         train_launches=r["train_launches"],
+         eval_launches=r["eval_launches"],
+         train_mean_loss=r.get("train_mean_loss"),
+         eval_mean_loss=r.get("eval_mean_loss"), wer=r.get("wer"),
+         step_ms=r["train_step_ms"], wait_ms=r["train_wait_ms"],
+         eval_step_ms=r["eval_step_ms"],
+         train_audio_s_per_s=r["train_audio_sec_per_sec"],
+         plain_calls=dict(guard.calls))
+    if guard.calls:
+        raise AssertionError(f"plain versions ran in fit_rnnt: "
+                             f"{dict(guard.calls)}")
+    if steps != FIT_RNNT_BATCHES or r["train_launches"] != want:
+        raise AssertionError(f"{steps} steps, launches "
+                             f"{r['train_launches']}; expected "
+                             f"{FIT_RNNT_BATCHES}, {want}")
+    for key in ("train_mean_loss", "eval_mean_loss", "wer"):
+        if not np.isfinite(r.get(key, float("nan"))):
+            raise AssertionError(f"report {key} missing or not finite: "
+                                 f"{r.get(key)}")
+
+
+def fit_phases(dev) -> None:
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_fit_ds2(dev, workdir)
+        phase_resume_ds2(dev, workdir)
+    phase_fit_rnnt(dev)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA card (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    if argv[:1] == ["--guarded-cli"]:
+        return guarded_cli(argv[1:])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3007,6 +3457,7 @@ def main() -> int:
     phase_ctc_falls(dev)
     phase_medium_falls(dev)
     phase_trained(dev)
+    fit_phases(dev)
     print(json.dumps({"kernels": [k1] + k234 + k56 + k78}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3016,4 +3467,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

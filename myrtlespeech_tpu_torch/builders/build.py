@@ -11,10 +11,12 @@ the CTC and transducer ``build_loss`` (``:213-275``; its
 ``validate`` (``:374-387``), ``build_rnnt_decode_helpers`` and
 ``build_decoder`` for the CTC greedy and beam decoders (with their LMs) and
 the greedy RNN-T decoder (``:395-488``), ``build_lr_schedule`` and
-``build_optimizer`` (``:510-563``), ``Task`` and ``build_task`` (without
-datasets, which the run-loop slice adds), and :func:`init_params`, which
-fills a model with seeded random weights drawn the way Flax's initialisers
-draw them.
+``build_optimizer`` (``:510-563``), ``build_dataset`` (``:571-579``),
+``Task`` and ``build_task``, and :func:`init_params`, which fills a model
+with seeded random weights drawn the way Flax's initialisers draw them.
+Unlike the JAX package's, ``build_task`` builds no dataset: a ``Task``
+builds each at its first access (``fit`` and the CLI), so that the serve and
+step paths run where a config's corpus is not on disk.
 
 Blank-index convention: the output vocabulary is
 ``max(len(alphabet), blank_index + 1)``.
@@ -32,6 +34,9 @@ from torch import nn
 
 from myrtlespeech_tpu_torch.config import schema as S
 from myrtlespeech_tpu_torch.data.alphabet import Alphabet
+from myrtlespeech_tpu_torch.data.dataset.fake import FakeSpeechToText
+from myrtlespeech_tpu_torch.data.dataset.librispeech import LibriSpeech
+from myrtlespeech_tpu_torch.data.dataset.synthetic import SyntheticSpeech
 from myrtlespeech_tpu_torch.decoding.ctc_beam import (WordLMTensors,
                                                       ctc_beam_decode)
 from myrtlespeech_tpu_torch.decoding.ctc_greedy import ctc_greedy_decode
@@ -516,15 +521,32 @@ def build_optimizer(cfg: S.TrainConfig, steps_per_epoch: int,
 
 
 # ---------------------------------------------------------------------------
+# Datasets
+# ---------------------------------------------------------------------------
+
+
+def build_dataset(cfg: S.DatasetConfig):
+    """The map-style dataset of ``cfg``: items ``(waveform, transcript)``."""
+    if isinstance(cfg, S.FakeSpeechToTextConfig):
+        return FakeSpeechToText(cfg)
+    if isinstance(cfg, S.LibriSpeechConfig):
+        return LibriSpeech(cfg)
+    if isinstance(cfg, S.SyntheticSpeechConfig):
+        return SyntheticSpeech(cfg)
+    raise ValueError(f"unknown dataset config {type(cfg)}")
+
+
+# ---------------------------------------------------------------------------
 # Task bundle
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class Task:
-    """What the train and eval steps need from one TaskConfig (the JAX
-    package's ``Task`` without datasets).  The transducer's fused losses are
-    None for a CTC task.
+    """What the train and eval steps and ``fit`` need from one TaskConfig.
+    The transducer's fused losses are None for a CTC task.  The datasets are
+    built at their first access (LibriSpeech raises when its directory is
+    missing); assigning one replaces it.
 
     ``decoder`` is a CTC task's decoder, ``(logits, logit_lens) ->
     (tokens, lens)``, and None for a transducer, whose decoder drives the
@@ -559,6 +581,16 @@ class Task:
     def build_optimizer(self, params) -> Optimizer:
         return build_optimizer(self.cfg.train_config, self.steps_per_epoch,
                                params)[0]
+
+    @functools.cached_property
+    def train_dataset(self):
+        return build_dataset(self.cfg.train_dataset)
+
+    @functools.cached_property
+    def eval_dataset(self):
+        if self.cfg.eval_dataset is None:
+            return None
+        return build_dataset(self.cfg.eval_dataset)
 
 
 def build_task(cfg: S.TaskConfig, steps_per_epoch: int = 1000,

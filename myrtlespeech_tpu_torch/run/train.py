@@ -1,10 +1,13 @@
-"""Training entry point: the RNN-T and CTC train steps and the eval step.
+"""Training: the RNN-T and CTC train steps, the eval step and ``fit``.
 
 Port of ``myrtlespeech_tpu/run/train.py``: ``TrainState``, ``init_state``,
 ``_forward``, ``_select_joint_path``, ``train_step_body``,
-``make_train_step`` and ``eval_step_body`` (the loss and the decode).
-PyTorch runs eagerly, so the step is a plain function that updates the
-state in place:
+``make_train_step``, ``eval_step_body`` (the loss and the decode),
+``make_eval_step`` and ``fit`` (epochs over the bucketed loader, the eval
+stage, callbacks, exact resume; one card: the JAX package's mesh and
+multi-process branches wait for ``ROADMAP.md`` Queue 1 item 7).  PyTorch
+runs eagerly, so the step is a plain function that updates the state in
+place:
 
     preprocess (SpecAugment at train time) -> RNNT.encode -> RNNT.predict
     -> joint path -> lattice (K3, K4) -> backward -> clip, L2, Adam
@@ -31,7 +34,8 @@ topology.
 
 runs a config of ``myrtlespeech_tpu_torch/configs`` with seeded random
 weights on seeded noise and labels (as ``bench.py`` makes them) and prints
-one JSON line per step.  It runs on the card unless ``--device cpu``.
+one JSON line per step.  It runs on the card unless ``--device cpu``.  To
+train a config on its datasets, use ``run/cli.py`` (``fit``).
 """
 
 from __future__ import annotations
@@ -49,8 +53,10 @@ from torch import nn
 from myrtlespeech_tpu_torch.builders.build import (Optimizer, Task,
                                                    build_decoder, build_task,
                                                    init_params, vocab_size)
+from myrtlespeech_tpu_torch.data.batch import BucketedLoader, PrefetchLoader
 from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, joint_kernel,
                                              lstm_kernel, rnnt_kernel)
+from myrtlespeech_tpu_torch.run.callbacks import CallbackHandler, Stage
 from myrtlespeech_tpu_torch.run.infer import load_config, resolve_device
 from myrtlespeech_tpu_torch.run.memory import plan_transducer_chunk
 
@@ -192,7 +198,9 @@ def train_step_body(task: Task) -> Callable:
         loss, _ = _forward(task, state.model, batch, True, state.gen)
         loss.backward()
         gnorm = state.optimizer.step(state.step)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
+        # In the JAX step's order (a jitted dict's keys come out sorted),
+        # which sets the CSV log's columns.
+        metrics = {"grad_norm": gnorm, "loss": loss.detach(),
                    "lr": task.lr_schedule(state.step)}
         state.step += 1
         return state, metrics
@@ -238,6 +246,133 @@ def eval_step_body(task: Task, decode: bool = True,
         return metrics
 
     return eval_step
+
+
+def make_eval_step(task: Task, decode: bool = True,
+                   max_output_len: int = 200) -> Callable:
+    """The eval step (eager: there is nothing to compile)."""
+    return eval_step_body(task, decode, max_output_len)
+
+
+def fit(task: Task, epochs: Optional[int] = None, callbacks=(),
+        batch_size: Optional[int] = None, decode_eval: bool = True,
+        seed: Optional[int] = None, loader_kwargs: Optional[dict] = None,
+        eval_loader_kwargs: Optional[dict] = None,
+        initial_state: Optional[TrainState] = None,
+        start_epoch: int = 0, skip_batches: int = 0,
+        eval_only: bool = False, device: str = "cuda") -> CallbackHandler:
+    """Train ``task`` for ``epochs`` on its datasets, as the JAX package's
+    ``fit`` (``myrtlespeech_tpu/run/train.py:333-594``) on one device.
+
+    Each epoch: ``set_epoch`` on the train loader (a ``BucketedLoader``
+    behind a ``PrefetchLoader``), the train steps, then the eval stage (the
+    eval step with the config's decoder when ``decode_eval``) when the task
+    has an eval dataset.  Batches go to ``device`` through ``to_device``.
+    ``initial_state``/``start_epoch``/``skip_batches`` resume exactly: the
+    loader's order is a pure function of ``(seed, epoch)``, the LR schedule
+    keys off ``state.step`` and SpecAugment's generator is in the state.
+    Without ``initial_state`` the model starts from ``init_state(task,
+    seed)``.  ``eval_only`` runs one eval stage.
+
+    Returns the callback handler; its ``state`` holds ``step``,
+    ``batch_index``, ``train_state`` and ``reports`` (mean losses, WER,
+    throughput).  A config with ``mesh_model > 1`` raises: tensor
+    parallelism is ``ROADMAP.md`` Queue 1 item 7, and this never trains it
+    on one card instead.
+    """
+    tc = task.cfg.train_config
+    if tc.mesh_model > 1:
+        raise NotImplementedError(
+            f"mesh_model={tc.mesh_model}: tensor parallelism is not ported "
+            "yet (ROADMAP.md Queue 1 item 7)")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # Float32 products in full float32, as build_transcriber sets them.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if tc.debug_nans:  # the counterpart of jax_debug_nans: NaNs raise
+        torch.autograd.set_detect_anomaly(True)
+    epochs = epochs if epochs is not None else tc.epochs
+    batch_size = batch_size or tc.batch_size
+    seed = seed if seed is not None else tc.seed
+    lk = dict(loader_kwargs or {})
+    prefetch = lk.pop("prefetch", 2)
+    lk.setdefault("bucket_growth", tc.audio_bucket_growth)
+    lk.setdefault("label_bucket", tc.label_bucket)
+    lk.setdefault("num_workers", 4)  # sample-fetch threads
+    train_loader = BucketedLoader(
+        task.train_dataset, task.alphabet, batch_size,
+        shuffle=tc.shuffle_batches_before_every_epoch, seed=seed, **lk)
+    if prefetch:
+        train_loader = PrefetchLoader(train_loader, prefetch)
+    eval_loader = None
+    if task.eval_dataset is not None:
+        ek = dict(eval_loader_kwargs or lk)
+        ek.pop("prefetch", None)
+        # Eval packs batches sorted by duration (full batches, fewest
+        # padding rows); explicit kwargs win.
+        ek.setdefault("pack", True)
+        eval_loader = BucketedLoader(task.eval_dataset, task.alphabet,
+                                     batch_size, shuffle=False, **ek)
+        if prefetch:
+            eval_loader = PrefetchLoader(eval_loader, prefetch)
+
+    handler = CallbackHandler(list(callbacks))
+    train_step = make_train_step(task)
+    eval_step = make_eval_step(task, decode=decode_eval)
+    state = initial_state
+    if state is None:
+        state = init_state(task, seed=seed, device=str(dev))
+
+    def run_eval():
+        handler.on_stage_begin(Stage.EVAL)
+        for batch in eval_loader:
+            arrays = to_device(batch, dev)
+            handler.on_batch_begin(batch)
+            handler.on_batch_end(eval_step(state, arrays))
+            if handler.state["stop_epoch"] or handler.state["stop_training"]:
+                break
+        handler.on_stage_end()
+
+    if eval_only:
+        if eval_loader is None:
+            raise ValueError("eval_only requires an eval_dataset")
+        handler.on_train_begin()
+        run_eval()
+        handler.on_train_end()
+        handler.state["train_state"] = state
+        return handler
+
+    # Callbacks that keep per-epoch files (CSVLogger) need the resume
+    # epoch, and the step count continues from the restored state.
+    handler.state["start_epoch"] = start_epoch
+    handler.state["step"] = int(state.step)
+    handler.on_train_begin()
+    for epoch in range(start_epoch, epochs):
+        handler.on_epoch_begin(epoch)
+        handler.on_stage_begin(Stage.TRAIN)
+        skip = skip_batches if epoch == start_epoch else 0
+        train_loader.set_epoch(epoch, skip)
+        # Resumed mid-epoch: the batch cursor starts past the skipped
+        # batches, so that StopEpochAfter and the saved cursor stay exact.
+        handler.state["batch_index"] = skip
+        for batch in train_loader:
+            arrays = to_device(batch, dev)
+            handler.on_batch_begin(batch)
+            state, metrics = train_step(state, arrays)
+            handler.on_batch_end(metrics)
+            if handler.state["stop_epoch"] or handler.state["stop_training"]:
+                break
+        handler.state["train_state"] = state
+        handler.on_stage_end()
+        if eval_loader is not None:
+            run_eval()
+        handler.on_epoch_end()
+        if handler.state["stop_training"]:
+            break
+    handler.on_train_end()
+    handler.state["train_state"] = state
+    return handler
 
 
 def example_batch(batch: int, seconds: float, labels: int, seed: int = 0,
