@@ -113,7 +113,21 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              and copies to the host: only the transcript's), the same
              logits decoded greedily and, greedy and beam, on the CPU
              (tokens equal), K1's calls replayed against the plain version
-             and cuDNN.  Then ``ctc_decode_fixture``: the logits of
+             and cuDNN.  Then ``rnnt_beam_serve``: ``rnn_t_960_beam`` (the
+             flagship model, 5 encoder LSTM-1024 and 2 prediction LSTM-320
+             layers, joint 512, V=29) with seeded weights transcribes
+             B=32 x 5 s of seeded noise through ``build_transcriber`` and
+             its beam decoder (W=16, expand_topk 16, speculative_frames 8,
+             max_symbols_per_step 8, max_output_len 200): three timed runs,
+             no plain version, K1 on both routes (the encoder's 5 calls
+             persistent; the prediction net at B*W = 512 rows on the
+             per-step route, 2 launches a call), block steps, expansion
+             rounds and flags read from the device a batch, a stage split,
+             one traced run (K1's device ms by route, the idle share), the
+             decode window traced alone (kernels a loop iteration, copies to
+             the host), K1's calls against the plain version (the first of
+             each shape), plain and cuDNN replays.  Then
+             ``ctc_decode_fixture``: the logits of
              ``port_tools/ctc_decode_fixture.npz`` decoded on the card must
              give the JAX package's stored tokens exactly.  Then
              ``ctc_falls``: ``synthetic_ctc`` from seeded weights, warmup
@@ -125,7 +139,16 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              256-utterance eval split greedily at B=32; its WER must lie
              within 0.01 of the JAX package's greedy WER for the same weights;
              its eval loss over the split and the gradient norm of the first
-             batch must lie within tolerance of the JAX package's.
+             batch must lie within tolerance of the JAX package's.  Then
+             ``trained_beam``: the same split through the config's own beam
+             (W=8, expand_topk 16, speculative_frames 8, length_norm): its
+             WER within 0.01 of the JAX package's beam WER for the same
+             weights, decode seconds, K1's launches by route (no plain
+             version), rounds a frame and the share of frames consumed as
+             pure blank (the decoder's tallies, in the same pass), and K1's
+             calls of one batch against the plain version (the first of
+             each shape: the encoder's and the prediction net's at
+             B*W = 256 rows).
     After ``trained``, the run loop (``run/train.py::fit``, the bucketed
     loader, checkpoints, the CLI), on ``deep_speech_2_en`` and ``rnn_t_en``
     at full width with their datasets swapped for the synthetic corpus:
@@ -156,9 +179,12 @@ device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
 device times of the replays; ``bound_ms`` counted from the recorded calls;
 K1's and K2's entries also hold ``us_per_step``, the per-step route's
 ``stepwise_ms`` and ``stepwise_us_per_step``, and ``paths``: these figures
-for each main path, serve, train, long and ds2, K1's also ds2_serve), the
+for each main path, serve, train, long and ds2, K1's also ds2_serve,
+rnnt_beam_serve, with its launches and device ms by route, and
+trained_beam, with its launches by route and errors), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every main
-path also asserts that K1's and K2's per-step route launched no time.
+path but the RNN-T beam's also asserts that K1's and K2's per-step route
+launched no time.
 Without a CUDA card the script exits non-zero before it prints any result.
 """
 
@@ -166,6 +192,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -188,6 +215,17 @@ import myrtlespeech_tpu_torch  # noqa: F401  (fails at once outside a checkout)
 # 0.10714285714285714, "port_cpu_wer": 0.10714285714285714}.
 JAX_GREEDY_WER = 0.10714285714285714
 WER_TOLERANCE = 0.01
+
+# The JAX package's beam WER for the same npz and split, decoded by the
+# config's own beam (W=8, length_norm, max_symbols_per_step=8, expand_topk
+# 16, speculative_frames 8), measured on the CPU by ``python
+# port_tools/medium_beam_wer.py``: {"jax_cpu_wer": 0.08850931677018634,
+# "port_cpu_wer": 0.09083850931677019, "transcripts_differing": 6} (both in
+# the config's bfloat16; the 6 transcripts differ through rounding: in
+# float32 the two agree, PERF.md section 2).  The TPU-era A/B figure for W=8
+# (benchmarks/data/ab/rnnt_medium_ab.txt:4) is printed beside it.
+JAX_BEAM_WER = 0.08850931677018634
+AB_BEAM_WER = 0.0908
 
 # K1 against its plain version on the card, over up to 501 steps.  The kernel
 # sums h @ W_hh in another order (mma tiles, then warps) and uses CUDA's
@@ -313,6 +351,13 @@ DS2_SERVE_LAUNCHES = {"k1": 10, "k2": 0, "k1_step": 0, "k2_step": 0,
 # Copies to the host allowed in the decode window: the transcript's tokens
 # and lengths at its end.
 DECODE_DTOH_COPIES = 2
+# The RNN-T beam's serve path: rnn_t_960_beam (the flagship model, W=16) at
+# B=32 x 5 s.  Its encoder takes K1's persistent route (5 launches, B=32);
+# the prediction net runs at B*W = 512 rows, over the persistent route's 128,
+# so its T=1 calls take the per-step route (2 launches a call, one a layer).
+BEAM_BATCH, BEAM_SECONDS = 32, 5.0
+BEAM_FRAMES, BEAM_ENCODER_WIDTH = 251, 1024
+BEAM_ENCODER_LAUNCHES = 5
 
 # K7 against its plain version: the same fp32 stencil, but K7 sums each
 # cell's three terms with one log (the largest plus the log of one plus the
@@ -2881,6 +2926,178 @@ def phase_ds2_serve(dev):
     return figures
 
 
+def k1_routes(counts) -> dict:
+    """K1's launches by route from ``_read_counts()``: every launch of
+    ``lstm_fwd`` not made by the per-step route is the persistent one's."""
+    return {"persistent": counts["k1"] - counts["k1_step"],
+            "stepwise": counts["k1_step"]}
+
+
+def phase_rnnt_beam_serve(dev):
+    """rnn_t_960_beam at full width and depth with seeded weights
+    transcribes B=32 x 5 s of seeded noise through ``build_transcriber``
+    and the config's beam (W=16, expand_topk 16, speculative_frames 8,
+    max_symbols_per_step 8, max_output_len 200): one warm-up and three timed
+    runs, no plain version, K1 on both routes (the encoder persistent, the
+    prediction net at 512 rows per-step); the loop's block steps, rounds and
+    flags read from the device a batch; a stage split; one traced run (K1's
+    device ms by route, the idle share) and the decode window alone traced
+    (kernels a loop iteration, copies to the host); K1's calls of one run
+    against the plain version (the first call of each shape), the plain
+    version's and cuDNN's device times over all of them.  Returns the
+    ``rnnt_beam_serve`` path of K1's ``kernels`` entry."""
+    from myrtlespeech_tpu_torch.builders.build import random_params
+    from myrtlespeech_tpu_torch.decoding import rnnt_beam
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+    from myrtlespeech_tpu_torch.run.infer import (build_transcriber,
+                                                  load_config, random_audio)
+
+    cfg = load_config("rnn_t_960_beam")
+    pc = cfg.speech_to_text.post_process
+    t0 = time.perf_counter()
+    tr = build_transcriber(cfg, random_params(cfg, seed=0), device=str(dev))
+    setup_s = time.perf_counter() - t0
+    B, secs = BEAM_BATCH, BEAM_SECONDS
+    wav, lens = random_audio(B, secs, seed=0)
+    tr.transcribe(wav, lens)  # warm-up
+    times, routes, loops = [], [], []
+    with _plain_guard() as guard:
+        for _ in range(3):
+            _zero_counts()
+            rnnt_beam.LOOP_COUNTS.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.transcribe(wav, lens)  # ends in a copy to the host
+            times.append(time.perf_counter() - t0)
+            launches = _read_counts()
+            routes.append(k1_routes(launches))
+            loops.append(dict(rnnt_beam.LOOP_COUNTS))
+        stages = stage_ms(tr, wav, lens)
+        _zero_counts()
+        traced_wall_ms, spans = device_trace(lambda: tr.transcribe(wav,
+                                                                   lens))
+        traced_routes = k1_routes(_read_counts())
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on the beam serve path: "
+                             f"{dict(guard.calls)}")
+    if any(r != routes[0] for r in routes + [traced_routes]) \
+            or any(lp != loops[0] for lp in loops):
+        raise AssertionError(f"K1 launches or loop counts differ from run "
+                             f"to run: {routes} {traced_routes} {loops}")
+    per_run = routes[0]
+    if per_run["persistent"] != BEAM_ENCODER_LAUNCHES \
+            or per_run["stepwise"] == 0 or per_run["stepwise"] % 2:
+        raise AssertionError(f"K1 launches by route a batch: {per_run}; "
+                             f"expected {BEAM_ENCODER_LAUNCHES} persistent "
+                             "(the encoder) and 2 per-step a prediction call")
+    others = {n: c for n, c in launches.items()
+              if n not in ("k1", "k1_step") and c}
+    if others:
+        raise AssertionError(f"other kernels ran on the beam serve path: "
+                             f"{others}")
+    k1_spans = {"persistent": named(spans, TRACE_NAMES["k1"]),
+                "stepwise": named(spans, TRACE_NAMES["k1_step"])}
+    found = {r: len(sp) for r, sp in k1_spans.items()}
+    if found != traced_routes:
+        raise AssertionError(f"the trace holds {found} K1 kernels, the "
+                             f"counters {traced_routes}")
+    by_kernel = collections.Counter()
+    for name, s0, e0 in spans:
+        by_kernel[name[:80]] += (e0 - s0) / 1e3
+    busy = busy_ms(spans)
+
+    # What came out: token ids of the vocabulary, lengths in range, and a
+    # finite encoder output of the expected shape; then the decode window
+    # alone, traced.
+    toks, tlens = out.tokens.cpu().numpy(), out.lengths.cpu().numpy()
+    V = len(cfg.speech_to_text.alphabet)
+    if toks.shape != (B, 200) or not (
+            (0 <= tlens).all() and (tlens <= 200).all()
+            and (0 <= toks).all() and (toks < V).all()):
+        raise AssertionError(f"bad tokens {toks.shape} lens {tlens}")
+    with torch.inference_mode():
+        feats, flens = tr.preprocess(torch.as_tensor(wav, device=dev),
+                                     torch.as_tensor(lens, device=dev))
+        f, f_lens = tr.outputs(feats, flens)
+    if tuple(f.shape) != (B, BEAM_FRAMES, BEAM_ENCODER_WIDTH) \
+            or not torch.isfinite(f.float()).all():
+        raise AssertionError(f"encoder output {tuple(f.shape)} not finite "
+                             "or of the wrong shape")
+
+    def decode_to_host():
+        with torch.inference_mode():
+            return tuple(a.cpu() for a in tr.decode_outputs(f, f_lens))
+
+    rnnt_beam.LOOP_COUNTS.clear()
+    dec_wall_ms, dec_spans = device_trace(decode_to_host)
+    dec_loops = dict(rnnt_beam.LOOP_COUNTS)
+    kernels, dtoh, htod = kernels_and_copies(dec_spans)
+    iterations = dec_loops["block_steps"] + dec_loops["rounds"]
+    del feats, f
+
+    # K1 on this path's own calls: against the plain version (the first
+    # call of each shape), the plain version and cuDNN over every call.
+    calls = record_many({"k1": (k, "lstm_fwd")},
+                        lambda: tr.transcribe(wav, lens))["k1"]
+    errs = {}
+    with torch.inference_mode():
+        for args in _first_per_shape(calls, lambda a: a[0].shape).values():
+            max_into(errs, k1_errors(k.lstm_fwd(*args),
+                                     k.lstm_fwd_reference(*args),
+                                     "beam serve"))
+
+        def plain_replay():
+            with torch.inference_mode():
+                for args in calls:
+                    k.lstm_fwd_reference(*args)
+
+        _, plain_spans = device_trace(plain_replay, or_events=True)
+    check_errors(errs, "beam serve")
+    library_ms, library = cudnn_replay(calls, "k1", dev)
+    works = [k1_work(*a[0].shape[:2], a[0].shape[2] // 4, a[5] is not None)
+             for a in calls]
+    bound_ms, bound_by = bound(sum(w[0] for w in works),
+                               sum(w[1] for w in works))
+    steps = sum(a[0].shape[0] for a in calls)
+    del calls
+    k1_ms = {r: span_ms(sp) for r, sp in k1_spans.items()}
+    figures = {"launches": sum(traced_routes.values()),
+               "launches_by_route": traced_routes,
+               "ms": sum(k1_ms.values()), "ms_by_route": k1_ms,
+               "steps": steps, "plain_ms": span_ms(plain_spans),
+               "plain_calls": len(works), "library_ms": library_ms,
+               "library": library, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": max(errs.values())}
+    ms = 1e3 * statistics.median(times)
+    emit("rnnt_beam_serve", config="rnn_t_960_beam", batch=B, seconds=secs,
+         decoder=f"beam W={pc.beam_width} expand_topk={pc.expand_topk} "
+                 f"speculative_frames={pc.speculative_frames} "
+                 f"max_symbols_per_step={pc.max_symbols_per_step} "
+                 f"length_norm={pc.length_norm} max_output_len=200",
+         setup_s=setup_s, ms_per_batch=ms, ms_runs=[1e3 * t for t in times],
+         audio_s_per_s=B * secs / (ms / 1e3), **stages,
+         k1_launches_by_route=per_run, loop_counts=loops[0],
+         flags_read=loops[0]["flag_reads"],
+         block_steps=loops[0]["block_steps"], rounds=loops[0]["rounds"],
+         traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / traced_wall_ms,
+         device_events=len(spans), k1_device_ms_by_route=k1_ms,
+         device_ms_by_kernel=dict(by_kernel.most_common(10)),
+         decode_wall_ms_traced=dec_wall_ms,
+         decode_device_busy_ms=busy_ms(dec_spans),
+         decode_kernels=len(kernels),
+         decode_kernels_per_iteration=len(kernels) / iterations,
+         decode_dtoh_copies=len(dtoh), decode_htod_copies=len(htod),
+         decode_kernels_by_name=dict(collections.Counter(
+             n[:60] for n in kernels).most_common(8)),
+         token_lens=tlens.tolist(),
+         k1=dict(figures, errors=errs, tolerance=K1_TOL))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figures
+
+
 def phase_ctc_decode_fixture(dev):
     """The port decodes the fixture's stored logits (B=4 x 836 x 29) on the
     card with each stored decoder (``port_tools/ctc_decode_fixture.py``:
@@ -2951,6 +3168,107 @@ def phase_trained(dev):
                              f"JAX package's {JAX_GREEDY_WER}")
     del tr
     trained_loss(dev, npz)
+
+
+def phase_trained_beam(dev):
+    """The trained medium npz decodes the 256-utterance eval split through
+    ``synthetic_medium_rnnt``'s own beam (W=8, length_norm,
+    max_symbols_per_step 8, expand_topk 16, speculative_frames 8), batched
+    as ``phase_trained`` batches it: its WER must lie within WER_TOLERANCE of
+    the JAX package's beam WER for the same weights; decode seconds, K1's
+    launches by route (the encoder persistent, the prediction net at 256
+    rows per-step), no plain version, and the decoder's tallies of the same
+    pass: rounds a frame and the share of frames consumed as pure blank.
+    Then K1's calls of one batch against the plain version, the first call
+    of each shape.  Returns the ``trained_beam`` path of K1's ``kernels``
+    entry."""
+    from myrtlespeech_tpu_torch.configs.synthetic_medium_rnnt import \
+        task_config as cfg
+    from myrtlespeech_tpu_torch.data.dataset.synthetic import SyntheticSpeech
+    from myrtlespeech_tpu_torch.decoding import rnnt_beam
+    from myrtlespeech_tpu_torch.decoding.wer import wer
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+    from myrtlespeech_tpu_torch.run.infer import (build_transcriber,
+                                                  pad_waveforms)
+    from myrtlespeech_tpu_torch.weights import params_from_npz
+
+    pc = cfg.speech_to_text.post_process
+    npz = "benchmarks/data/rnnt_medium/trained_params_bf16.npz"
+    tr = build_transcriber(cfg, params_from_npz(npz, cfg), device=str(dev))
+    ds = SyntheticSpeech(cfg.eval_dataset)
+    items = [ds[i] for i in range(len(ds))]
+    s_max = max(len(w) for w, _ in items)
+    batches = []
+    for i in range(0, len(items), 32):
+        chunk = items[i:i + 32]
+        wav, lens = pad_waveforms([w for w, _ in chunk])
+        batches.append((np.pad(wav, ((0, 0), (0, s_max - wav.shape[1]))),
+                        lens, [t for _, t in chunk]))
+    refs = [t for _, _, texts in batches for t in texts]
+    tr.transcribe(*batches[0][:2])  # warm-up
+    # The decoder's device tallies ride along in the timed pass: a few
+    # reductions a loop iteration, read once a batch after its transcript.
+    decode, tally, hyps = tr.decode, collections.Counter(), []
+    with _plain_guard() as guard:
+        _zero_counts()
+        rnnt_beam.LOOP_COUNTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for wav, lens, _ in batches:
+            t = {}
+            tr.decode = functools.partial(decode, tally=t)
+            hyps += tr.transcribe(wav, lens).texts
+            tally.update({n: int(v) for n, v in t.items()})
+        seconds = time.perf_counter() - t0
+        tr.decode = decode
+        counts = _read_counts()
+        loops = dict(rnnt_beam.LOOP_COUNTS)
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on the trained beam path: "
+                             f"{dict(guard.calls)}")
+    routes = k1_routes(counts)
+
+    # K1 on this path's own calls (one batch): the encoder's persistent
+    # calls and the prediction net's per-step ones at B*W = 256 rows.
+    calls = record_many({"k1": (k, "lstm_fwd")},
+                        lambda: tr.transcribe(*batches[0][:2]))["k1"]
+    errs = {}
+    firsts = _first_per_shape(calls, lambda a: a[0].shape)
+    with torch.inference_mode():
+        for args in firsts.values():
+            max_into(errs, k1_errors(k.lstm_fwd(*args),
+                                     k.lstm_fwd_reference(*args),
+                                     "trained beam"))
+    del calls
+    w = wer(refs, hyps)
+    emit("trained_beam", config="synthetic_medium_rnnt",
+         decoder=f"beam W={pc.beam_width} expand_topk={pc.expand_topk} "
+                 f"speculative_frames={pc.speculative_frames} "
+                 f"max_symbols_per_step={pc.max_symbols_per_step} "
+                 f"length_norm={pc.length_norm}",
+         utterances=len(refs), wer=w, jax_wer=JAX_BEAM_WER,
+         tolerance=WER_TOLERANCE, ab_wer_tpu_era=AB_BEAM_WER,
+         greedy_jax_wer=JAX_GREEDY_WER, decode_seconds=seconds,
+         k1_launches_by_route=routes, launches=counts, loop_counts=loops,
+         tally=dict(tally),
+         rounds_per_frame=(tally["pure_blank_frames"] + tally["row_rounds"])
+         / tally["valid_frames"],
+         pure_blank_share=tally["pure_blank_frames"] / tally["valid_frames"],
+         k1_shapes_checked=[list(s) for s in firsts], k1_errors=errs,
+         k1_tolerance=K1_TOL,
+         examples=[[r, h] for r, h in zip(refs[:3], hyps[:3])])
+    check_errors(errs, "trained beam")
+    if not (routes["persistent"] and routes["stepwise"]):
+        raise AssertionError(f"K1 did not launch on both routes: {routes}")
+    if not abs(w - JAX_BEAM_WER) <= WER_TOLERANCE:
+        raise AssertionError(f"beam WER {w} is not within {WER_TOLERANCE} "
+                             f"of the JAX package's {JAX_BEAM_WER}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": sum(routes.values()), "launches_by_route": routes,
+            "shapes_checked": [list(s) for s in firsts], "errors": errs,
+            "max_abs_err": max(errs.values())}
 
 
 def trained_loss(dev, npz: str):
@@ -3450,13 +3768,15 @@ def main(argv) -> int:
         phase_train_long(dev)
     k1["paths"]["ds2"], k234[0]["paths"]["ds2"], k78 = phase_train_ctc(dev)
     k1["paths"]["ds2_serve"] = phase_ds2_serve(dev)
+    k1["paths"]["rnnt_beam_serve"] = phase_rnnt_beam_serve(dev)
     phase_ctc_decode_fixture(dev)
-    for entry in (k1, k234[0]):
-        entry["max_abs_err"] = max(p["max_abs_err"]
-                                   for p in entry["paths"].values())
     phase_ctc_falls(dev)
     phase_medium_falls(dev)
     phase_trained(dev)
+    k1["paths"]["trained_beam"] = phase_trained_beam(dev)
+    for entry in (k1, k234[0]):
+        entry["max_abs_err"] = max(p["max_abs_err"]
+                                   for p in entry["paths"].values())
     fit_phases(dev)
     print(json.dumps({"kernels": [k1] + k234 + k56 + k78}), flush=True)
     print(smi, flush=True)

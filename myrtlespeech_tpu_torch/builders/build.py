@@ -10,7 +10,7 @@ the CTC and transducer ``build_loss`` (``:213-275``; its
 :func:`build_joint_tail_loss` (``build_pallas_joint_loss``, ``:314-372``),
 ``validate`` (``:374-387``), ``build_rnnt_decode_helpers`` and
 ``build_decoder`` for the CTC greedy and beam decoders (with their LMs) and
-the greedy RNN-T decoder (``:395-488``), ``build_lr_schedule`` and
+the RNN-T greedy and beam decoders (``:395-502``), ``build_lr_schedule`` and
 ``build_optimizer`` (``:510-563``), ``build_dataset`` (``:571-579``),
 ``Task`` and ``build_task``, and :func:`init_params`, which fills a model
 with seeded random weights drawn the way Flax's initialisers draw them.
@@ -41,6 +41,7 @@ from myrtlespeech_tpu_torch.decoding.ctc_beam import (WordLMTensors,
                                                       ctc_beam_decode)
 from myrtlespeech_tpu_torch.decoding.ctc_greedy import ctc_greedy_decode
 from myrtlespeech_tpu_torch.decoding.lm import load_bigram_lm, load_word_lm
+from myrtlespeech_tpu_torch.decoding.rnnt_beam import rnnt_beam_decode
 from myrtlespeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
 from myrtlespeech_tpu_torch.models.cnn import conv_block_out_features
 from myrtlespeech_tpu_torch.models.deep_speech_2 import DeepSpeech2
@@ -242,8 +243,11 @@ def build_decoder(cfg: S.SpeechToTextConfig,
     A CTC decoder takes ``(logits, logit_lens)``; its LM tables are loaded
     here and copied to a device once, at its first call there.  The greedy
     RNN-T decoder takes ``(f, f_lens, max_output_len=200)`` (the encoder's
-    output) and drives ``model``'s prediction and joint nets.  The RNN-T
-    beam decoder raises ``NotImplementedError``.
+    output) and drives ``model``'s prediction and joint nets; the RNN-T
+    beam decoder takes the same and also ``tally`` (see
+    :func:`~myrtlespeech_tpu_torch.decoding.rnnt_beam.rnnt_beam_decode`).
+    Both run in projected joint space, the beam's prediction net at
+    ``B * beam_width`` rows.
     """
     pc = cfg.post_process
     if isinstance(pc, S.CTCGreedyDecoderConfig):
@@ -284,21 +288,31 @@ def build_decoder(cfg: S.SpeechToTextConfig,
                 word_lm=words, expand_topk=pc.expand_topk)
 
         return beam
-    if not isinstance(pc, S.RNNTGreedyDecoderConfig):
-        raise NotImplementedError(
-            f"{type(pc).__name__} is not ported yet: ROADMAP.md Queue 1 "
-            "(RNN-T beam search)")
     predict_step, joint_fp_step, project_f, init_state_fn = \
         build_rnnt_decode_helpers(model)
+    if isinstance(pc, S.RNNTGreedyDecoderConfig):
+        def greedy(f, f_lens, max_output_len: int = 200):
+            return rnnt_greedy_decode(
+                project_f(f), f_lens, predict_step, joint_fp_step,
+                init_state_fn(f.shape[0], f.device),
+                blank_index=pc.blank_index,
+                max_symbols_per_step=pc.max_symbols_per_step,
+                max_output_len=max_output_len)
 
-    def greedy(f, f_lens, max_output_len: int = 200):
-        return rnnt_greedy_decode(
-            project_f(f), f_lens, predict_step, joint_fp_step,
-            init_state_fn(f.shape[0], f.device), blank_index=pc.blank_index,
-            max_symbols_per_step=pc.max_symbols_per_step,
-            max_output_len=max_output_len)
+        return greedy
+    if isinstance(pc, S.RNNTBeamDecoderConfig):
+        def beam(f, f_lens, max_output_len: int = 200, tally=None):
+            return rnnt_beam_decode(
+                project_f(f), f_lens, predict_step, joint_fp_step,
+                init_state_fn(f.shape[0] * pc.beam_width, f.device),
+                blank_index=pc.blank_index, beam_width=pc.beam_width,
+                length_norm=pc.length_norm,
+                max_symbols_per_step=pc.max_symbols_per_step,
+                max_output_len=max_output_len, expand_topk=pc.expand_topk,
+                speculative_frames=pc.speculative_frames, tally=tally)
 
-    return greedy
+        return beam
+    raise ValueError(f"unknown decoder config {type(pc)}")
 
 
 # ---------------------------------------------------------------------------

@@ -18,14 +18,33 @@ from typing import Callable, Tuple
 import torch
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of nested lists, tuples and named tuples."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+
+
 def _select(emit: torch.Tensor, new, old):
-    """Per-row select over a (nested list / tuple of) tensors."""
-    if isinstance(new, torch.Tensor):
-        m = emit.reshape((-1,) + (1,) * (new.dim() - 1))
-        return torch.where(m, new, old)
-    if isinstance(new, tuple) and hasattr(new, "_fields"):
-        return type(new)(*(_select(emit, n, o) for n, o in zip(new, old)))
-    return type(new)(_select(emit, n, o) for n, o in zip(new, old))
+    """Per-row select over a (nested list / tuple of) tensors: ``emit (B,)``
+    picks ``new`` for row b, and a tensor whose leading dim is ``k * B``
+    holds row b's k rows at ``b * k`` onwards."""
+    B = emit.shape[0]
+
+    def pick(n, o):
+        # One broadcast ``where`` for B rows; the greedy loop is host-bound,
+        # so k * B rows alone pay for the split and the join.
+        if n.shape[0] == B:
+            return torch.where(emit.reshape((B,) + (1,) * (n.dim() - 1)),
+                               n, o)
+        n, o = n.unflatten(0, (B, -1)), o.unflatten(0, (B, -1))
+        m = emit.reshape((B,) + (1,) * (n.dim() - 1))
+        return torch.where(m, n, o).flatten(0, 1)
+
+    return tree_map(pick, new, old)
 
 
 def rnnt_greedy_decode(

@@ -4,7 +4,7 @@ LSTM encoder with a stride-``r`` time reduction between its two stacks,
 embedding + LSTM prediction net, and the factored joint
 ``act(f) @ W_f + act(g) @ W_g + b``.  ``encode``, ``predict_step``,
 ``joint_project_f`` and ``joint_from_fp`` are separate methods because the
-greedy decoder drives them separately; ``predict`` (full label sequences),
+decoders drive them separately; ``predict`` (full label sequences),
 ``joint`` (the full ``(B, T', U+1, V)`` logits) and ``forward`` are the
 training path, and ``joint_project`` feeds the joint-tail kernels (K5, K6).
 Train-time dropout (between RNN layers, in the joint, or

@@ -3,8 +3,8 @@
 Port of the decode half of ``myrtlespeech_tpu/run/train.py::eval_step_body``
 (``:278-326``), under ``torch.inference_mode()``:
 
-- an RNN-T: features -> ``RNNT.encode`` -> ``joint_project_f`` -> greedy
-  decode;
+- an RNN-T: features -> ``RNNT.encode`` -> ``joint_project_f`` -> the
+  config's greedy or beam decoder (``decoding/rnnt_{greedy,beam}.py``);
 - a CTC model (DeepSpeech2): features -> the model's logits -> the config's
   CTC decoder (greedy, or prefix beam search with its LMs).
 
@@ -13,6 +13,7 @@ the decoders are PyTorch on the card, and the only copy to the host is the
 transcript's at the end.
 
     python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_en --batch 32 --seconds 5
+    python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_960_beam --batch 32 --seconds 5
     python -m myrtlespeech_tpu_torch.run.infer --config deep_speech_2_en --batch 32 --seconds 16.7
 
 runs a config of ``myrtlespeech_tpu_torch/configs`` with seeded random

@@ -309,11 +309,27 @@ def test_build_decoder_word_lm_needs_a_separator(tmp_path, synthetic_lms):
             word_lm_path=str(tmp_path / "w.npz"), word_lm_alpha=1.0)))
 
 
-def test_build_decoder_rnnt_beam_is_not_ported():
-    stt = _stt(PS, PS.RNNTBeamDecoderConfig(), model=PS.RNNTConfig(),
-               loss=PS.RNNTLossConfig())
-    with pytest.raises(NotImplementedError, match="RNN-T beam"):
-        port_build.build_decoder(stt, None)
+def test_build_decoder_rnnt_beam_decodes_as_jax():
+    """``build_decoder`` of an RNN-T beam config (W=4, ``length_norm``,
+    ``max_symbols_per_step`` 3, ``expand_topk`` 16, ``speculative_frames``
+    8) decodes as the JAX package's ``build_decoder`` on the same weights
+    and encoder output (``test_torch_rnnt_beam.py``'s tiny RNN-T)."""
+    from tests.test_torch_rnnt_beam import (LENS, _jax_model, _port_model,
+                                            encoder_output)
+
+    f = encoder_output(seed=7)
+    stt_j, jm, variables = _jax_model("plain")
+    decode_j = jax_build.build_decoder(stt_j, jm)
+    want = _np(jax.jit(lambda f, lens: decode_j(
+        variables, f, lens, max_output_len=12))(jnp.asarray(f),
+                                                jnp.asarray(LENS)))
+    stt_p, pm = _port_model("plain")
+    assert isinstance(stt_p.post_process, PS.RNNTBeamDecoderConfig)
+    with torch.inference_mode():
+        got = port_build.build_decoder(stt_p, pm)(
+            torch.from_numpy(f), torch.from_numpy(LENS), max_output_len=12)
+    _assert_same(tuple(a.numpy() for a in got), want)
+    assert got[0].shape == (len(LENS), 12) and got[1].max() > 0
 
 
 @pytest.mark.parametrize("which", ["model_loss", "model_decoder", "blank"])

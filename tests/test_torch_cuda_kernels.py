@@ -211,7 +211,10 @@ def test_persistent_k1_k2_are_deterministic():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(3, 2, 2048), (4, 130, 64)])
+@pytest.mark.parametrize("T,B,H", [(3, 2, 2048), (4, 130, 64),
+                                   # the beams' prediction nets, B * W rows:
+                                   # rnn_t_960_beam, synthetic_medium_rnnt
+                                   (1, 512, 320), (1, 256, 128)])
 def test_oversize_shapes_dispatch_to_the_per_step_kernels(T, B, H):
     dev = _card()
     assert port_k1._route(dev, B, H) == "stepwise"

@@ -13,7 +13,8 @@ from myrtlespeech_tpu_torch.config import serde
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("rnn_t_en", "synthetic_medium_rnnt", "synthetic_hard_rnnt",
-           "deep_speech_2_en", "synthetic_ctc", "ctc_tiny_fake")
+           "deep_speech_2_en", "synthetic_ctc", "ctc_tiny_fake",
+           "synthetic_rnnt", "rnn_t_960_beam")
 
 
 def _pair(name):

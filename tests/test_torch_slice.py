@@ -76,6 +76,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import port_tools.ctc_decode_fixture\n"
+        "import port_tools.serve_ab\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'myrtlespeech_tpu'))\n"
         "assert not bad, bad\n"
@@ -84,14 +85,16 @@ def test_port_imports_no_jax():
         "          'config.serde', 'data.batch', 'data.dataset.fake',\n"
         "          'data.dataset.librispeech', 'native', 'run.callbacks',\n"
         "          'run.checkpoint', 'run.cli', 'run.supervisor',\n"
-        "          'utils.trace', 'configs.ctc_tiny_fake'):\n"
+        "          'utils.trace', 'configs.ctc_tiny_fake',\n"
+        "          'decoding.rnnt_beam', 'configs.synthetic_rnnt',\n"
+        "          'configs.rnn_t_960_beam'):\n"
         "    assert 'myrtlespeech_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('myrtlespeech_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 59  # every module was imported
+    assert int(out.stdout) >= 62  # every module was imported
 
 
 def test_chip_smoke_imports_no_jax():
