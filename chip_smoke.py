@@ -172,7 +172,32 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              batches of 16 through ``fit`` and decodes one greedily: the
              joint path taken at each batch shape, K1-K4 7/7/1/1 a step (K5,
              K6 where the joint tail is taken), finite losses and WER.
-    ``fit_phases(dev)`` runs these three alone (after ``phase_build()``).
+    Then the hard-corpus configs at their widths and batch (32), their
+    datasets cut to 128 train and 32 eval utterances of the hard corpus,
+    each through the CLI for 4 train batches and one eval batch decoded by
+    its beam (W=8), no plain version:
+             ``fit_preddrop``: ``synthetic_hard_rnnt_preddrop`` (embedding
+             dropout 0.3, the T-chunked joint): step ms, K1-K4 5/5/1/1 a
+             step, the embedding masks' kept share over the run within 4
+             binomial standard deviations of 0.7; then, in-process, a fit
+             stopped after 2 batches, saved, restored and resumed to 4,
+             bit-equal to the uninterrupted fit: parameters, optimizer
+             state, step, SpecAugment's generator and the dropout generator
+             (on the card).  ``fit_hard_ctc``: ``synthetic_hard_ctc``: K1/K2
+             at H=256 (3 BiLSTM layers) 6/6 and K7/K8 1/1 a step, the eval
+             batch by the prefix beam.  ``ft_hard_rnnt``: the committed
+             medium npz written as a port checkpoint; the CLI's warm start
+             from it holds the npz's parameters bit for bit, step 0, no
+             optimizer state and the LR schedule's start; then
+             ``synthetic_hard_rnnt_ft`` with ``--init_from`` it: K1-K4
+             5/5/1/1 a step; the first eval batch's beam WER.  Each of the
+             three also takes one train step in process with every kernel
+             call recorded, and holds each kernel against its plain version
+             on those inputs (K1/K2 the first call of each shape, both
+             routes): the errors join each kernel's ``paths`` in the
+             ``kernels`` line.
+    ``fit_phases(dev)`` runs the run-loop phases alone (after
+    ``phase_build()``).
 
 Then a ``kernels`` line (one entry per ported kernel: ``ms`` is the kernel's
 device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
@@ -181,7 +206,9 @@ K1's and K2's entries also hold ``us_per_step``, the per-step route's
 ``stepwise_ms`` and ``stepwise_us_per_step``, and ``paths``: these figures
 for each main path, serve, train, long and ds2, K1's also ds2_serve,
 rnnt_beam_serve, with its launches and device ms by route, and
-trained_beam, with its launches by route and errors), the
+trained_beam, with its launches by route and errors; K1, K2, K3, K4, K7
+and K8 the hard-corpus fits' paths, fit_preddrop, fit_hard_ctc and
+ft_hard_rnnt, with their errors against the plain versions), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every main
 path but the RNN-T beam's also asserts that K1's and K2's per-step route
 launched no time.
@@ -389,8 +416,13 @@ CTC_LIBRARY_RTOL = 1e-4
 CTC_PLAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3}
 
 
+# The card's name and power limit (nvidia-smi), set by ``phase_card``: every
+# later line carries it.
+CARD = {}
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **CARD, **fields}), flush=True)
 
 
 def cuda_ms(fn, reps: int, queued: bool = False) -> float:
@@ -511,6 +543,7 @@ def phase_card():
     emit("card", nvidia_smi=out, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
+    CARD["card"] = out
     return out
 
 
@@ -3359,19 +3392,42 @@ def _synthetic_datasets(cfg, n_train: int, n_eval: int):
 
 def guarded_cli(argv) -> int:
     """``run/cli.py``'s ``main(argv)`` with the plain versions counted
-    (``--guarded-cli``: ``fit_ds2`` and ``resume_ds2`` run the CLI so, in a
-    subprocess); its last line is ``{"plain_calls": {...}}``."""
+    (``--guarded-cli``: the fit phases run the CLI so, in a subprocess) and
+    the dropout masks tallied (``draw_keep``'s draws: masks, entries and
+    entries kept, summed on the device).  Its last line is
+    ``{"plain_calls": {...}, "dropout": {...}}``."""
+    from myrtlespeech_tpu_torch.ops import dropout
     from myrtlespeech_tpu_torch.run import cli
 
-    with _plain_guard() as guard:
-        rc = cli.main(argv)
-    print(json.dumps({"plain_calls": dict(guard.calls)}), flush=True)
+    tally = {"masks": 0, "entries": 0, "kept_per_mask": [], "shapes": []}
+    draw = dropout.draw_keep
+
+    def counting_draw(shape, keep_prob, gen):
+        keep = draw(shape, keep_prob, gen)
+        tally["masks"] += 1
+        tally["entries"] += keep.numel()
+        tally["kept_per_mask"].append(keep.sum())  # read at the end
+        if list(shape) not in tally["shapes"]:
+            tally["shapes"].append(list(shape))
+        return keep
+
+    dropout.draw_keep = counting_draw
+    try:
+        with _plain_guard() as guard:
+            rc = cli.main(argv)
+    finally:
+        dropout.draw_keep = draw
+    tally["kept_per_mask"] = [int(k) for k in tally["kept_per_mask"]]
+    tally["kept"] = sum(tally["kept_per_mask"])
+    print(json.dumps({"plain_calls": dict(guard.calls), "dropout": tally}),
+          flush=True)
     return rc
 
 
 def run_cli(args, timeout: int = 600):
     """The CLI in a subprocess under ``guarded_cli``: ``(reports, wall_s,
-    stdout)``.  Fails if it exits non-zero or a plain version ran."""
+    stdout, last)``, ``last`` its last line (the dropout tally).  Fails if
+    it exits non-zero or a plain version ran."""
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--guarded-cli", *args],
@@ -3381,11 +3437,12 @@ def run_cli(args, timeout: int = 600):
         raise AssertionError(f"the CLI exited {out.returncode}: "
                              f"{out.stderr[-4000:]}")
     head, last = out.stdout.rstrip().rsplit("\n", 1)
-    plain = json.loads(last)["plain_calls"]
-    if plain:
-        raise AssertionError(f"plain versions ran in the CLI: {plain}")
+    last = json.loads(last)
+    if last["plain_calls"]:
+        raise AssertionError(f"plain versions ran in the CLI: "
+                             f"{last['plain_calls']}")
     reports = json.loads(head[head.rindex("\n{\n") + 1:])
-    return reports, wall_s, out.stdout
+    return reports, wall_s, out.stdout, last
 
 
 def _times(reports, stage: str, first: int = 1):
@@ -3412,7 +3469,7 @@ def phase_fit_ds2(dev, workdir: str):
     save_json(_synthetic_datasets(load_config("deep_speech_2_en"),
                                   FIT_TRAIN_LEN, FIT_EVAL_LEN), cfg_path)
     ck, log = os.path.join(workdir, "ds2_ck"), os.path.join(workdir, "log")
-    reports, wall_s, _ = run_cli(
+    reports, wall_s, _, _ = run_cli(
         ["--config", cfg_path, "--epochs", "1", "--max_batches",
          str(FIT_BATCHES), "--checkpoint_dir", ck, "--log_dir", log])
     with open(os.path.join(log, "metrics.csv"), newline="") as fh:
@@ -3458,7 +3515,7 @@ def phase_fit_ds2(dev, workdir: str):
 
 def _state_tensors(state) -> dict:
     """A train state's tensors by name: the model's parameters and buffers,
-    the optimizer's state, the step and the generator's state."""
+    the optimizer's state, the step and both generators' states."""
     out = {f"model.{k}": v.detach().clone()
            for k, v in state.model.state_dict().items()}
     for i, st in state.optimizer.inner.state_dict()["state"].items():
@@ -3466,6 +3523,7 @@ def _state_tensors(state) -> dict:
             out[f"optimizer.{i}.{k}"] = torch.as_tensor(v).clone()
     out["step"] = torch.tensor(state.step)
     out["gen"] = state.gen.get_state()
+    out["dropout_gen"] = state.dropout_gen.get_state()
     return out
 
 
@@ -3474,17 +3532,18 @@ def _compare_states(a: dict, b: dict) -> dict:
     difference, absolute and over the tensor's largest magnitude."""
     diff = {"bit_equal": True, "unequal": []}
     for k in a:
-        if torch.equal(a[k], b[k]):
+        x, y = a[k].cpu(), b[k].cpu()
+        if torch.equal(x, y):
             continue
         diff["bit_equal"] = False
         diff["unequal"].append(k)
-        if not a[k].is_floating_point():
+        if not x.is_floating_point():
             diff["integer_mismatch"] = k
             continue
         cat = ("buffer" if k.endswith((".mean", ".var")) else
                k.split(".", 1)[0])
-        d = (a[k].double() - b[k].double()).abs().max().item()
-        scale = max(b[k].double().abs().max().item(), 1e-30)
+        d = (x.double() - y.double()).abs().max().item()
+        scale = max(y.double().abs().max().item(), 1e-30)
         prev = diff.setdefault(cat, {"max_abs": 0.0, "max_rel": 0.0})
         prev["max_abs"] = max(prev["max_abs"], d)
         prev["max_rel"] = max(prev["max_rel"], d / scale)
@@ -3627,7 +3686,7 @@ def phase_resume_ds2(dev, workdir: str):
     busy = trace.busy_ms(prof_dir)
     fit_ms = a.state["reports"]["train_step_ms"]
     wer = b.state["reports"]["wer"]
-    eval_reports, eval_wall_s, _ = run_cli(
+    eval_reports, eval_wall_s, _, _ = run_cli(
         ["--config", cfg_path, "--eval_only", "--checkpoint_dir", ck])
     emit("resume_ds2", config="deep_speech_2_en", batches=FIT_BATCHES,
          stopped_after=FIT_STOP, cursor=list(cursor),
@@ -3733,11 +3792,400 @@ def phase_fit_rnnt(dev):
                                  f"{r.get(key)}")
 
 
-def fit_phases(dev) -> None:
+# The hard-corpus configs (synthetic_hard_rnnt_preddrop, synthetic_hard_ctc,
+# synthetic_hard_rnnt_ft) at their widths and batch (32), their datasets cut
+# to HARD_TRAIN_LEN and HARD_EVAL_LEN utterances of the hard corpus: a run
+# takes HARD_BATCHES train batches and one eval batch, decoded by the
+# config's beam (W=8).  The RNN-T configs force the T-chunked joint
+# (fused_chunk_size=32), so a train step launches K1 and K2 once per LSTM
+# layer (4 encoder, 1 prediction net), K3 and K4 once, and K5/K6 never; the
+# CTC config K1 and K2 once per direction of its 3 BiLSTM layers, K7 and K8
+# once.
+HARD_TRAIN_LEN, HARD_EVAL_LEN, HARD_BATCHES = 128, 32, 4
+HARD_RNNT_STEP = {"k1": 5, "k2": 5, "k3": 1, "k4": 1, "k5": 0, "k6": 0,
+                  "k7": 0, "k8": 0}
+HARD_CTC_STEP = {"k1": 6, "k2": 6, "k3": 0, "k4": 0, "k5": 0, "k6": 0,
+                 "k7": 1, "k8": 1}
+HARD_CTC_EVAL = {"k1": 6, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0,
+                 "k7": 1, "k8": 0}
+# preddrop's resume check: stop after HARD_STOP of HARD_BATCHES batches.
+HARD_STOP = 2
+# The embedding's keep probability in synthetic_hard_rnnt_preddrop, and the
+# standard deviations within which the kept share over a run must lie.
+PREDDROP_KEEP, KEPT_SIGMAS = 0.7, 4.0
+MEDIUM_NPZ = "benchmarks/data/rnnt_medium/trained_params_bf16.npz"
+
+
+def _hard_config(name: str, workdir: str):
+    """The port's config ``name`` with its hard-corpus datasets cut to
+    HARD_TRAIN_LEN and HARD_EVAL_LEN utterances (speakers, filters and
+    noise kept), saved as JSON: ``(cfg, path)``."""
+    from myrtlespeech_tpu_torch.config import schema as S
+    from myrtlespeech_tpu_torch.config.serde import save_json
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    cfg = load_config(name)
+    cfg = S.replace(
+        cfg,
+        train_dataset=S.replace(cfg.train_dataset, dataset_len=HARD_TRAIN_LEN),
+        eval_dataset=S.replace(cfg.eval_dataset, dataset_len=HARD_EVAL_LEN))
+    path = os.path.join(workdir, f"{name}.json")
+    save_json(cfg, path)
+    return cfg, path
+
+
+def _hard_fit(name: str, workdir: str, extra=()):
+    """``name`` (cut by ``_hard_config``) through the CLI in a subprocess:
+    one epoch of HARD_BATCHES train batches and the eval batch, the CSV
+    log's train rows; ``(cfg, reports, wall_s, last, rows)``."""
+    import csv
+
+    cfg, path = _hard_config(name, workdir)
+    log = os.path.join(workdir, f"{name}_log")
+    reports, wall_s, _, last = run_cli(
+        ["--config", path, "--epochs", "1", "--max_batches",
+         str(HARD_BATCHES), "--log_dir", log, *extra])
+    with open(os.path.join(log, "metrics.csv"), newline="") as fh:
+        rows = [r for r in csv.DictReader(fh) if r["stage"] == "train"]
+    return cfg, reports, wall_s, last, rows
+
+
+def _check_fit(label: str, reports, rows, want_train, want_eval=None):
+    """The fit's steps, launches (train; eval where ``want_eval``), finite
+    losses and WER."""
+    if len(rows) != HARD_BATCHES or len(reports["eval_step_ms"]) != 1:
+        raise AssertionError(f"{label}: {len(rows)} train and "
+                             f"{len(reports['eval_step_ms'])} eval batches, "
+                             f"expected {HARD_BATCHES} and 1")
+    want_train = {k: n * HARD_BATCHES for k, n in want_train.items()}
+    if reports["train_launches"] != want_train:
+        raise AssertionError(f"{label}: train launches "
+                             f"{reports['train_launches']}, expected "
+                             f"{want_train}")
+    if want_eval is not None and reports["eval_launches"] != want_eval:
+        raise AssertionError(f"{label}: eval launches "
+                             f"{reports['eval_launches']}, expected "
+                             f"{want_eval}")
+    losses = [float(r["loss"]) for r in rows]
+    for key in ("train_mean_loss", "eval_mean_loss", "wer"):
+        if not np.isfinite(reports.get(key, float("nan"))):
+            raise AssertionError(f"{label}: report {key} missing or not "
+                                 f"finite: {reports.get(key)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    return losses
+
+
+def _fit_fields(reports, rows, wall_s) -> dict:
+    return dict(batch=32, steps=len(rows),
+                losses=[float(r["loss"]) for r in rows],
+                step_ms=reports["train_step_ms"],
+                step_ms_median_2_4=statistics.median(
+                    reports["train_step_ms"][1:]),
+                wait_ms=reports["train_wait_ms"],
+                eval_step_ms=reports["eval_step_ms"],
+                train_mean_loss=reports.get("train_mean_loss"),
+                eval_mean_loss=reports.get("eval_mean_loss"),
+                wer=reports.get("wer"), cer=reports.get("cer"),
+                train_launches=reports["train_launches"],
+                eval_launches=reports["eval_launches"], cli_wall_s=wall_s,
+                plain_calls=0)
+
+
+def _longest_train_batch(task, dev, n: int):
+    """The longest of the first ``n`` batches of the task's train loader in
+    epoch 0 (those the fit phases train on), on ``dev``: on the chunked
+    joint, the one of most chunks."""
+    from myrtlespeech_tpu_torch.data.batch import BucketedLoader
+    from myrtlespeech_tpu_torch.run import train
+
+    tc = task.cfg.train_config
+    loader = BucketedLoader(task.train_dataset, task.alphabet, tc.batch_size,
+                            shuffle=tc.shuffle_batches_before_every_epoch,
+                            seed=tc.seed, bucket_growth=tc.audio_bucket_growth,
+                            label_bucket=tc.label_bucket)
+    loader.set_epoch(0)
+    batches = [b for _, b in zip(range(n), loader)]
+    return train.to_device(max(batches, key=lambda b: b["wav"].shape[1]),
+                           dev)
+
+
+def hard_step_replays(task, state, dev, label: str, want: dict) -> dict:
+    """One train step of a hard-corpus config from ``state`` on the longest
+    batch of its fit (``_longest_train_batch``), every call of the kernels that ``want`` (a step's
+    launches) launches recorded as it was made, and as many calls as it
+    says.  Each kernel is held against its plain version on those inputs:
+    K1 and K2 through both routes, the first call of each shape
+    (``lstm_replays``, bidirectional for the CTC model), K3 and K4 on the
+    step's lattice (``lattice_errors``), K7 and K8 (``ctc_errors`` and
+    ``ctc_chain_errors``), at the tolerances of the other phases.  Returns
+    each kernel's path figures for the ``kernels`` line."""
+    from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, lstm_kernel,
+                                                 rnnt_kernel)
+    from myrtlespeech_tpu_torch.run import train
+
+    wrappers = {"k1": (lstm_kernel, "lstm_fwd"),
+                "k2": (lstm_kernel, "lstm_bwd"),
+                "k3": (rnnt_kernel, "rnnt_lattice_fwd"),
+                "k4": (rnnt_kernel, "rnnt_lattice_bwd"),
+                "k7": (ctc_kernel, "ctc_lattice_fwd"),
+                "k8": (ctc_kernel, "ctc_lattice_bwd")}
+    targets = {k: w for k, w in wrappers.items() if want[k]}
+    batch = _longest_train_batch(task, dev, HARD_BATCHES)
+    step = train.make_train_step(task)
+    calls = record_many(targets, lambda: step(state, batch), snapshot=True)
+    torch.cuda.synchronize()
+    made = {k: len(c) for k, c in calls.items()}
+    if made != {k: want[k] for k in targets}:
+        raise AssertionError(f"{label}: the recorded step made {made} "
+                             f"calls, expected {want}")
+    shapes = {"k1": sorted({tuple(a[0].shape) for a in calls["k1"]}),
+              "k2": sorted({tuple(a[4].shape) for a in calls["k2"]})}
+    lstm = lstm_replays(calls.pop("k1"), calls.pop("k2"), label, dev,
+                        plain_per_shape=True,
+                        bidirectional=not task.transducer)
+    out = {k: dict(lstm[k], step_calls=want[k],
+                   shapes_checked=[list(sh) for sh in shapes[k]])
+           for k in ("k1", "k2")}
+    with torch.no_grad():
+        if "k3" in calls:
+            (k3_args,), (k4_args,) = calls.pop("k3"), calls.pop("k4")
+            errs = lattice_errors(
+                rnnt_kernel.rnnt_lattice_fwd(*k3_args),
+                rnnt_kernel.rnnt_lattice_bwd(*k4_args),
+                rnnt_kernel.rnnt_lattice_fwd_reference(*k3_args),
+                rnnt_kernel.rnnt_lattice_bwd_reference(*k4_args), k4_args,
+                label)
+            lattice = list(k3_args[0].shape)
+            out["k3"] = {"step_calls": 1, "lattice": lattice,
+                         "errors": {n: errs[n] for n in ("alphas", "ll")},
+                         "max_abs_err": max(errs["alphas"], errs["ll"])}
+            out["k4"] = {"step_calls": 1, "lattice": lattice,
+                         "errors": {n: errs[n] for n in
+                                    ("gblank", "gemit", "k4_float64")},
+                         "max_abs_err": max(errs["gblank"], errs["gemit"])}
+        if "k7" in calls:
+            (k7_args,), (k8_args,) = calls.pop("k7"), calls.pop("k8")
+            errs = ctc_errors(ctc_kernel.ctc_lattice_fwd(*k7_args),
+                              ctc_kernel.ctc_lattice_bwd(*k8_args),
+                              ctc_kernel.ctc_lattice_fwd_reference(*k7_args),
+                              ctc_kernel.ctc_lattice_bwd_reference(*k8_args),
+                              k7_args, label)
+            chain = ctc_chain_errors(k7_args, k8_args[-1], label)
+            lattice = list(k7_args[0].shape)
+            out["k7"] = {"step_calls": 1, "lattice": lattice,
+                         "errors": {n: errs[n] for n in
+                                    ("alphas", "ll", "k7_float64")},
+                         "chain_vs_float64": chain,
+                         "max_abs_err": max(errs["alphas"], errs["ll"])}
+            out["k8"] = {"step_calls": 1, "lattice": lattice,
+                         "errors": {"grad": errs["grad"]},
+                         "max_abs_err": errs["grad"]}
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fit_preddrop(dev, workdir: str):
+    """``synthetic_hard_rnnt_preddrop`` trains HARD_BATCHES batches of 32
+    through the CLI (embedding dropout 0.3 on the chunked path), then
+    decodes one eval batch by its beam: step ms, K1-K4 5/5/1/1 a step, no
+    plain version, finite losses and WER; the embedding masks' kept share
+    over the run within KEPT_SIGMAS binomial standard deviations of
+    PREDDROP_KEEP, every mask ``(B, U, 1)``.  Then, in-process, an
+    uninterrupted fit of HARD_BATCHES batches against one stopped after
+    HARD_STOP, saved, restored through the CLI's ``_restore_state`` and
+    resumed: parameters, optimizer state, step and both generators (the
+    dropout generator on the card) bit-equal.  The resumed fit's last step
+    is traced: K1-K4's device ms and the device's idle share.  Then one
+    more step from the resumed state, its K1-K4 calls (the embedding mask
+    in K2's gradient) held against the plain versions
+    (``hard_step_replays``); returns their path figures."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.run import callbacks as C
+    from myrtlespeech_tpu_torch.run import cli, train
+    from myrtlespeech_tpu_torch.run.checkpoint import (CheckpointCallback,
+                                                       CheckpointManager)
+    from myrtlespeech_tpu_torch.utils import trace
+
+    name = "synthetic_hard_rnnt_preddrop"
+    cfg, reports, wall_s, last, rows = _hard_fit(name, workdir)
+    drops = last["dropout"]
+    n, kept = drops["entries"], drops["kept"]
+    share = kept / max(n, 1)
+    sigma = (PREDDROP_KEEP * (1 - PREDDROP_KEEP) / max(n, 1)) ** 0.5
+
+    task = build_task(cfg, steps_per_epoch=HARD_TRAIN_LEN // 32)
+    with _plain_guard() as guard:
+        straight = _state_tensors(train.fit(
+            task, epochs=1, decode_eval=False, device=str(dev),
+            callbacks=[C.StopEpochAfter(HARD_BATCHES)]).state["train_state"])
+        mgr = CheckpointManager(os.path.join(workdir, "preddrop_ck"))
+        train.fit(task, epochs=1, decode_eval=False, device=str(dev),
+                  callbacks=[C.StopEpochAfter(HARD_STOP),
+                             CheckpointCallback(mgr)])
+        state, epoch, skip = cli._restore_state(task, mgr, str(dev))
+        prof_dir = os.path.join(workdir, "preddrop_trace")
+        prof = C.ProfilerCallback(prof_dir, start_step=HARD_BATCHES - 1,
+                                  num_steps=1)
+        resumed_state = train.fit(
+            task, epochs=1, decode_eval=False, device=str(dev),
+            initial_state=state, start_epoch=epoch, skip_batches=skip,
+            callbacks=[C.StopEpochAfter(HARD_BATCHES),
+                       prof]).state["train_state"]
+        resumed = _state_tensors(resumed_state)
+    diff = _compare_states(resumed, straight)
+    replays = hard_step_replays(task, resumed_state, dev, "preddrop step",
+                                HARD_RNNT_STEP)
+    rows_traced = trace.aggregate_trace(prof_dir) or []
+    kernel_ms = {k: sum(us for name, _, us in rows_traced
+                        if TRACE_NAMES[k] in name) / 1e3
+                 for k in ("k1", "k2", "k3", "k4")}
+    busy = trace.busy_ms(prof_dir)
+    emit("fit_preddrop", config=name, datasets="hard synthetic",
+         train_utterances=HARD_TRAIN_LEN, eval_utterances=HARD_EVAL_LEN,
+         **_fit_fields(reports, rows, wall_s), dropout_masks=drops["masks"],
+         mask_shapes=drops["shapes"], mask_entries=n, kept=kept,
+         kept_share=share, kept_share_sigma=sigma,
+         kept_share_z=(share - PREDDROP_KEEP) / max(sigma, 1e-30),
+         kept_per_mask=drops["kept_per_mask"],
+         traced_step=HARD_BATCHES - 1, traced_kernel_ms=kernel_ms,
+         traced_wall_ms=prof.wall_ms, traced_busy_ms=busy,
+         idle_share=None if busy is None else 1 - busy / prof.wall_ms,
+         resume_cursor=[epoch, skip], resume_step=int(resumed["step"]),
+         resume_generator=str(state.dropout_gen.device), **diff,
+         step_replays=replays, k1_tolerance=K1_TOL, k2_tolerance=K2_TOL,
+         k3_tolerance={"rtol": K3_RTOL, "atol": K3_ATOL},
+         k4_tolerance={"atol": K4_ATOL, "float64_ratio": CHAIN_RATIO})
+    _check_fit("fit_preddrop", reports, rows, HARD_RNNT_STEP)
+    if drops["masks"] != HARD_BATCHES or any(
+            len(sh) != 3 or sh[0] != 32 or sh[2] != 1
+            for sh in drops["shapes"]):
+        raise AssertionError(f"fit_preddrop: {drops['masks']} masks of "
+                             f"shapes {drops['shapes']}, expected "
+                             f"{HARD_BATCHES} of (32, U, 1)")
+    if abs(share - PREDDROP_KEEP) > KEPT_SIGMAS * sigma:
+        raise AssertionError(f"fit_preddrop: kept share {share} of {n} is "
+                             f"not within {KEPT_SIGMAS} sigma ({sigma}) of "
+                             f"{PREDDROP_KEEP}")
+    if guard.calls:
+        raise AssertionError(f"plain versions ran in fit_preddrop: "
+                             f"{dict(guard.calls)}")
+    if (epoch, skip) != (0, HARD_STOP) \
+            or int(resumed["step"]) != HARD_BATCHES:
+        raise AssertionError(f"fit_preddrop: resumed at {(epoch, skip)}, "
+                             f"ended at step {int(resumed['step'])}")
+    if state.dropout_gen.device.type != "cuda":
+        raise AssertionError("the dropout generator is not on the card")
+    if not diff["bit_equal"]:
+        raise AssertionError(f"fit_preddrop: the resumed state is not "
+                             f"bit-equal to the uninterrupted one: {diff}")
+    # The eval batch: the encoder's 4 layers, the beam's prediction net,
+    # the eval loss's lattice once.
+    if reports["eval_launches"]["k3"] != 1 \
+            or reports["eval_launches"]["k1"] < 4:
+        raise AssertionError(f"fit_preddrop: eval launches "
+                             f"{reports['eval_launches']}")
+    return replays
+
+
+def phase_fit_hard_ctc(dev, workdir: str):
+    """``synthetic_hard_ctc`` trains HARD_BATCHES batches of 32 through the
+    CLI and decodes one eval batch by its prefix beam (W=8): step ms, K1/K2
+    at H=256 (bidirectional) 6/6 and K7/K8 1/1 a step, K1 6 and K7 1 on
+    the eval batch, no plain version, finite losses and WER.  Then, in
+    process, one step from the config's seeded weights, its K1/K2/K7/K8
+    calls held against the plain versions (``hard_step_replays``); returns
+    their path figures."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.run import train
+
+    name = "synthetic_hard_ctc"
+    cfg, reports, wall_s, _, rows = _hard_fit(name, workdir)
+    task = build_task(cfg, steps_per_epoch=HARD_TRAIN_LEN // 32)
+    state = train.init_state(task, seed=cfg.train_config.seed,
+                             device=str(dev))
+    replays = hard_step_replays(task, state, dev, "hard CTC step",
+                                HARD_CTC_STEP)
+    del state
+    emit("fit_hard_ctc", config=name, datasets="hard synthetic",
+         train_utterances=HARD_TRAIN_LEN, eval_utterances=HARD_EVAL_LEN,
+         **_fit_fields(reports, rows, wall_s), step_replays=replays,
+         k1_tolerance=K1_TOL, k2_tolerance=K2_TOL,
+         k7_tolerance={"rtol": K7_RTOL, "atol": K7_ATOL,
+                       "float64_ratio": CHAIN_RATIO},
+         k8_tolerance={"atol": K8_ATOL})
+    _check_fit("fit_hard_ctc", reports, rows, HARD_CTC_STEP, HARD_CTC_EVAL)
+    return replays
+
+
+def phase_ft_hard_rnnt(dev, workdir: str):
+    """Stage 2 of the curriculum: the committed medium npz (stage 1, the
+    hard configs' architecture) as a port checkpoint.  In process, the
+    CLI's own warm start from it (``cli._warm_start``, what
+    ``--init_from`` runs) must hold every parameter of the npz bit for bit,
+    step 0, no optimizer state and the LR schedule's step-0 value; one
+    step from that state, its K1-K4 calls held against the plain versions
+    (``hard_step_replays``).  Then ``synthetic_hard_rnnt_ft`` through the
+    CLI with ``--init_from`` it for HARD_BATCHES batches of 32 and one eval
+    batch by its beam: the first step's logged LR the schedule's start,
+    K1-K4 5/5/1/1 a step, no plain version, finite losses; the eval batch's
+    beam WER.  Returns the replays' path figures."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.run import cli, train
+    from myrtlespeech_tpu_torch.run.checkpoint import (CheckpointManager,
+                                                       load_params_npz)
+
+    name = "synthetic_hard_rnnt_ft"
+    cfg, _ = _hard_config(name, workdir)
+    task = build_task(cfg, steps_per_epoch=HARD_TRAIN_LEN // 32)
+    init_dir = os.path.join(workdir, "medium_ck")
+    want = load_params_npz(MEDIUM_NPZ, cfg)
+    state = train.init_state(task, params=want, device=str(dev))
+    CheckpointManager(init_dir).save(0, state)
+    state = cli._warm_start(task, CheckpointManager(init_dir), str(dev))
+    got = state.model.state_dict()
+    lr0 = task.lr_schedule(0)
+    init = {"params": len(want),
+            "params_bit_equal": sorted(got) == sorted(want) and all(
+                torch.equal(got[k].cpu(), want[k]) for k in want),
+            "step": state.step,
+            "optimizer_state_entries": len(state.optimizer.inner.state),
+            "lr_at_start": task.lr_schedule(state.step)}
+    if not init["params_bit_equal"] or init["step"] != 0 \
+            or init["optimizer_state_entries"] != 0 \
+            or init["lr_at_start"] != lr0:
+        raise AssertionError(f"ft_hard_rnnt: the warm start is not the "
+                             f"npz's weights with a fresh optimizer and "
+                             f"schedule: {init}")
+    replays = hard_step_replays(task, state, dev, "ft step", HARD_RNNT_STEP)
+    del state, got
+    _, reports, wall_s, _, rows = _hard_fit(
+        name, workdir, extra=["--init_from", init_dir])
+    emit("ft_hard_rnnt", config=name, init_from=MEDIUM_NPZ,
+         datasets="hard synthetic", train_utterances=HARD_TRAIN_LEN,
+         eval_utterances=HARD_EVAL_LEN, **_fit_fields(reports, rows, wall_s),
+         init=init, first_logged_lr=float(rows[0]["lr"]), lr_at_step_0=lr0,
+         first_eval_batch_beam_wer=reports.get("wer"), step_replays=replays)
+    _check_fit("ft_hard_rnnt", reports, rows, HARD_RNNT_STEP)
+    if float(rows[0]["lr"]) != lr0:
+        raise AssertionError(f"ft_hard_rnnt: the first step's LR "
+                             f"{rows[0]['lr']}, not the schedule's start "
+                             f"{lr0}")
+    return replays
+
+
+def fit_phases(dev) -> dict:
+    """The run-loop phases; returns the hard-corpus phases' kernel figures
+    by path and kernel (``hard_step_replays``)."""
     with tempfile.TemporaryDirectory() as workdir:
         phase_fit_ds2(dev, workdir)
         phase_resume_ds2(dev, workdir)
     phase_fit_rnnt(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"fit_preddrop": phase_fit_preddrop(dev, workdir),
+                "fit_hard_ctc": phase_fit_hard_ctc(dev, workdir),
+                "ft_hard_rnnt": phase_ft_hard_rnnt(dev, workdir)}
 
 
 def main(argv) -> int:
@@ -3777,7 +4225,16 @@ def main(argv) -> int:
     for entry in (k1, k234[0]):
         entry["max_abs_err"] = max(p["max_abs_err"]
                                    for p in entry["paths"].values())
-    fit_phases(dev)
+    # The hard-corpus fits' kernel calls, each held against its plain
+    # version, join each kernel's paths and its largest error.
+    entries = dict(zip(("k1", "k2", "k3", "k4", "k7", "k8"),
+                       [k1, *k234, *k78]))
+    for path, figures in fit_phases(dev).items():
+        for kernel, fig in figures.items():
+            entry = entries[kernel]
+            entry.setdefault("paths", {})[path] = fig
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       fig["max_abs_err"])
     print(json.dumps({"kernels": [k1] + k234 + k56 + k78}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

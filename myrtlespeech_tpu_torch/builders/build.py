@@ -111,7 +111,7 @@ def build_preprocess(steps: Tuple[S.PreProcessStepConfig, ...]) -> Callable:
             else:
                 raise NotImplementedError(
                     f"preprocess step {type(st).__name__} is not ported "
-                    "yet: ROADMAP.md Queue 1, slice 3 (DeepSpeech1: MFCC, "
+                    "yet: ROADMAP.md Queue 1 item 5 (DeepSpeech1: MFCC, "
                     "context frames)")
         if not is_features:
             x = x[..., None]  # (B, S, 1) raw-sample "features"
@@ -160,8 +160,8 @@ def build_model(cfg: S.SpeechToTextConfig, dtype: torch.dtype,
         return DeepSpeech2(m, out_features=vocab_size(cfg),
                            in_features=in_features, dtype=dtype)
     raise NotImplementedError(
-        f"{type(m).__name__} is not ported yet: ROADMAP.md Queue 1 "
-        "(DeepSpeech1; encoder-decoder)")
+        f"{type(m).__name__} is not ported yet: ROADMAP.md Queue 1 item 5 "
+        "(DeepSpeech1) or item 6 (VGG, encoder-decoder)")
 
 
 def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
@@ -355,8 +355,11 @@ def build_fused_transducer_loss(cfg: S.SpeechToTextConfig,
     ``force``: the memory planner's fallback).
 
     Returns ``fused(model, f, f_lens, g, labels, label_lens, train=False,
-    chunk_size=None, weights=None) -> loss``; the chunk defaults to the
-    config's, else 32.
+    chunk_size=None, weights=None, gen=None) -> loss``; the chunk defaults
+    to the config's, else 32.  The joint's dropout masks are drawn from
+    ``gen`` once a call, at one chunk's shape, outside the chunks'
+    recomputation: every chunk, and its recomputation in backward, reuses
+    them (the JAX package's chunks reuse one dropout key likewise).
     """
     lc = cfg.loss
     if lc.fused_chunk_size is None and not force:
@@ -366,12 +369,15 @@ def build_fused_transducer_loss(cfg: S.SpeechToTextConfig,
 
     def fused(model: RNNT, f, f_lens, g, labels, label_lens,
               train: bool = False, chunk_size: Optional[int] = None,
-              weights=None):
+              weights=None, gen: Optional[torch.Generator] = None):
+        chunk = chunk_size or default_chunk
+        B, T, _ = f.shape
+        masks = model.joint_net.dropout_masks((B, min(chunk, T), g.shape[1]),
+                                              train, gen)
         nll = rnnt_loss_fused(
             f, f_lens, g, labels, label_lens,
-            lambda f_chunk: model.joint(f_chunk, g, train),
-            blank_index=lc.blank_index, reduction="none",
-            chunk_size=chunk_size or default_chunk)
+            lambda f_chunk: model.joint(f_chunk, g, train, masks=masks),
+            blank_index=lc.blank_index, reduction="none", chunk_size=chunk)
         return weighted_reduce(nll, red, weights)
 
     return fused
@@ -402,8 +408,9 @@ def build_joint_tail_loss(cfg: S.SpeechToTextConfig, dtype: torch.dtype
 
     def joint_tail(model: RNNT, f, f_lens, g, labels, label_lens,
                    train: bool = False, chunk_size: Optional[int] = None,
-                   weights=None):
-        del train, chunk_size  # no dropout in the kernels; nothing to chunk
+                   weights=None, gen: Optional[torch.Generator] = None):
+        # No dropout in the kernels; nothing to chunk.
+        del train, chunk_size, gen
         fp, gp = model.joint_project(f, g)
         dense = model.joint_net.rest.Dense_0
         lp_blank, lp_emit = joint_tail_blank_emit(

@@ -8,11 +8,14 @@ per-frame MLP (``FullyConnected_0``) -> logits ``(B, T', V)``.
 The submodules carry the Flax names, so the JAX package's parameters and
 ``batch_stats`` map one to one (``weights.py``).  ``train`` selects the
 BatchNorm statistics: the batch's (moving the running ones) at train time,
-the running ones otherwise.  Train-time dropout in the MLP is not ported
-yet and raises when it is above 0.
+the running ones otherwise.  At train time the MLP (and the RNN stack,
+where its config sets one) drops out at its configured rate, the masks
+drawn from the ``gen`` passed in (``ops/dropout.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -43,16 +46,11 @@ class DeepSpeech2(nn.Module):
                                                out_features, dtype)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
-                train: bool = False):
+                train: bool = False, gen: Optional[torch.Generator] = None):
         """``x (B, T, F)`` features, ``lengths (B,)`` -> ``(logits (B, T',
         V), lengths (B,))``."""
-        if train and self.cfg.fully_connected.dropout > 0:
-            raise NotImplementedError(
-                "train-time dropout in the fully connected layers is not "
-                "ported yet: ROADMAP.md Queue 1, slice 3 (DeepSpeech1, "
-                "dropout)")
         y, lengths = self.ConvBlock_0(x, lengths, train)
-        y, lengths, _ = self.RNN_0(y, lengths, train)
+        y, lengths, _ = self.RNN_0(y, lengths, train, gen=gen)
         if self.cfg.lookahead is not None:
             y = self.Lookahead_0(y, lengths)
-        return self.FullyConnected_0(y), lengths
+        return self.FullyConnected_0(y, train, gen), lengths

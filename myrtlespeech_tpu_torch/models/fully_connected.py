@@ -1,18 +1,22 @@
 """Per-timestep MLP (port of ``models/fully_connected.py``).
 
 ``num_hidden_layers`` hidden layers with the configured activation, then a
-final layer to ``out_features`` with none.  Parameters are fp32 and keep
-Flax's layout and names: ``Dense_{i}.kernel (in, out)`` and
-``Dense_{i}.bias``; products run in the compute dtype.
+final layer to ``out_features`` with none; at train time, dropout at
+``cfg.dropout`` after each hidden activation (``ops/dropout.py``).
+Parameters are fp32 and keep Flax's layout and names: ``Dense_{i}.kernel
+(in, out)`` and ``Dense_{i}.bias``; products run in the compute dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from myrtlespeech_tpu_torch.config.schema import FullyConnectedConfig
 from myrtlespeech_tpu_torch.models.activations import apply_activation
+from myrtlespeech_tpu_torch.ops.dropout import dropout
 
 
 class Dense(nn.Module):
@@ -42,9 +46,16 @@ class FullyConnected(nn.Module):
             self.add_module(f"Dense_{i}",
                             Dense(widths[i], widths[i + 1], dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``x (..., in)`` -> ``(..., out)``.  ``masks``: one keep mask a
+        hidden layer, drawn beforehand; else each is drawn from ``gen``."""
         y = x.to(self.dtype)
         layers = list(self.children())
-        for layer in layers[:-1]:
+        for i, layer in enumerate(layers[:-1]):
             y = apply_activation(self.cfg.activation, layer(y))
+            y = dropout(y, self.cfg.dropout, train, gen,
+                        None if masks is None else masks[i])
         return layers[-1](y)

@@ -8,9 +8,10 @@ and so through K1 on the card.
 
 With ``batch_norm`` a masked BatchNorm (``models/normalization.py``) runs
 between stacked layers, not after the last one: ``MaskedBatchNorm_{i}``
-after layer ``i``, as the JAX package names them.  Dropout between layers is
-the identity at inference; at train time a dropout above 0 raises
-``NotImplementedError`` (not ported yet), as do the other cells.
+after layer ``i``, as the JAX package names them.  At train time dropout at
+``cfg.dropout`` follows it, also between stacked layers and not after the
+last (``ops/dropout.py``).  The GRU, vanilla and HARD_LSTM cells raise
+``NotImplementedError`` (not ported yet).
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ from torch import nn
 from myrtlespeech_tpu_torch.config.schema import RNNConfig, RNNType
 from myrtlespeech_tpu_torch.models.normalization import MaskedBatchNorm
 from myrtlespeech_tpu_torch.ops import rnn as rnn_ops
+from myrtlespeech_tpu_torch.ops.dropout import dropout
 
 _NOT_PORTED = {
-    RNNType.GRU: "ROADMAP.md Queue 1, slice 3 (GRU and vanilla cells)",
-    RNNType.BASIC_RNN: "ROADMAP.md Queue 1, slice 3 (GRU and vanilla cells)",
-    RNNType.HARD_LSTM: "ROADMAP.md Queue 1, slice 2 (HARD_LSTM cell)",
+    RNNType.GRU: "ROADMAP.md Queue 1 item 6 (GRU and vanilla cells)",
+    RNNType.BASIC_RNN: "ROADMAP.md Queue 1 item 6 (GRU and vanilla cells)",
+    RNNType.HARD_LSTM: "ROADMAP.md Queue 1 item 6 (HARD_LSTM cell)",
 }
 
 
@@ -62,19 +64,17 @@ class RNN(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 train: bool = False,
-                initial_states: Optional[List[List[rnn_ops.LSTMState]]] = None):
+                initial_states: Optional[List[List[rnn_ops.LSTMState]]] = None,
+                gen: Optional[torch.Generator] = None):
         """Run the stack.
 
         ``initial_states``: optional per-layer list of per-direction states
-        (streaming decode); zeros if None.  Returns ``(outputs (B, T,
-        H*dirs), lengths, final_states)``, with ``final_states`` shaped like
+        (streaming decode); zeros if None.  ``gen`` draws the dropout masks
+        at train time.  Returns ``(outputs (B, T, H*dirs), lengths,
+        final_states)``, with ``final_states`` shaped like
         ``initial_states``.
         """
         c = self.cfg
-        if train and c.dropout > 0 and c.num_layers > 1:
-            raise NotImplementedError(
-                "dropout between RNN layers at train time is not ported "
-                "yet: ROADMAP.md Queue 1, slice 2 (train-time dropout)")
         dirs = 2 if c.bidirectional else 1
         y = x.transpose(0, 1)  # (T, B, F)
         final_states = []
@@ -96,4 +96,6 @@ class RNN(nn.Module):
             if c.batch_norm and layer < c.num_layers - 1:
                 bn = getattr(self, f"MaskedBatchNorm_{layer}")
                 y = bn(y.transpose(0, 1), lengths, train).transpose(0, 1)
+            if layer < c.num_layers - 1:
+                y = dropout(y, c.dropout, train, gen)
         return y.transpose(0, 1), lengths, final_states

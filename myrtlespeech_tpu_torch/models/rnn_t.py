@@ -7,8 +7,10 @@ embedding + LSTM prediction net, and the factored joint
 decoders drive them separately; ``predict`` (full label sequences),
 ``joint`` (the full ``(B, T', U+1, V)`` logits) and ``forward`` are the
 training path, and ``joint_project`` feeds the joint-tail kernels (K5, K6).
-Train-time dropout (between RNN layers, in the joint, or
-``embedding_dropout``) is not ported yet and raises when it is above 0.
+At train time the training path drops out (``ops/dropout.py``) between RNN
+layers, in the joint's tail after each hidden activation, and whole
+prediction-net embeddings (``embedding_dropout``), each mask drawn from the
+``gen`` passed in; the decoders never draw.
 
 Parameter names and layouts follow Flax, so the JAX package's weights map
 one to one (``weights.py``): ``enc_rnn1.*``, ``enc_rnn2.*``,
@@ -18,7 +20,7 @@ one to one (``weights.py``): ``enc_rnn1.*``, ``enc_rnn2.*``,
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -28,6 +30,7 @@ from myrtlespeech_tpu_torch.config.schema import RNNTConfig, RNNTJointNetConfig
 from myrtlespeech_tpu_torch.models.activations import apply_activation
 from myrtlespeech_tpu_torch.models.fully_connected import FullyConnected
 from myrtlespeech_tpu_torch.models.rnn import RNN
+from myrtlespeech_tpu_torch.ops import dropout as dropout_ops
 from myrtlespeech_tpu_torch.ops import masking
 from myrtlespeech_tpu_torch.ops.rnn import LSTMState
 
@@ -96,23 +99,42 @@ class RNNTJoint(nn.Module):
     def from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return self.tail(fp + self.project_g(g))
 
-    def tail(self, h: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """Activation and the remaining FC layers after the first layer."""
+    def dropout_masks(self, shape: Sequence[int], train: bool,
+                      gen: Optional[torch.Generator]
+                      ) -> Optional[List[torch.Tensor]]:
+        """The tail's keep masks for hidden ``h`` of ``shape + (K,)``, one a
+        dropout site (after the first layer's activation and after each
+        hidden layer of ``rest``), or None when the tail drops nothing."""
+        c = self.cfg.fc
+        if self.rest is None or not train or c.dropout == 0.0:
+            return None
+        return [dropout_ops.draw_keep((*shape, c.hidden_size),
+                                      1.0 - c.dropout, gen)
+                for _ in range(c.num_hidden_layers)]
+
+    def tail(self, h: torch.Tensor, train: bool = False,
+             gen: Optional[torch.Generator] = None,
+             masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Activation, dropout and the remaining FC layers after the first
+        layer.  ``masks`` (:meth:`dropout_masks`) are drawn beforehand;
+        else each is drawn from ``gen``."""
         if self.rest is None:
             return h
-        if train and self.cfg.fc.dropout > 0:
-            raise NotImplementedError(
-                "joint dropout at train time is not ported yet: ROADMAP.md "
-                "Queue 1, slice 2 (train-time dropout)")
-        return self.rest(apply_activation(self.cfg.fc.activation, h))
+        c = self.cfg.fc
+        h = dropout_ops.dropout(apply_activation(c.activation, h), c.dropout,
+                                train, gen, None if masks is None else masks[0])
+        return self.rest(h, train, gen, None if masks is None else masks[1:])
 
-    def forward(self, f: torch.Tensor, g: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, f: torch.Tensor, g: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
         """``f (B, T, H_enc)``, ``g (B, U+1, H_pred)`` -> logits ``(B, T, U+1,
         V)``.  Only the K-wide sum exists per lattice cell, never the
         broadcast concat.  A decode step goes through :meth:`from_fp`."""
         fp, gp = self.project(f, g)
-        return self.tail(fp[:, :, None, :] + gp[:, None, :, :], train)
+        return self.tail(fp[:, :, None, :] + gp[:, None, :, :], train, gen,
+                         masks)
 
 
 class RNNT(nn.Module):
@@ -138,28 +160,29 @@ class RNNT(nn.Module):
         self.joint_net = RNNTJoint(cfg.joint, vocab_size, h_enc, h_pred, dtype)
 
     def encode(self, x: torch.Tensor, lengths: torch.Tensor,
-               train: bool = False):
+               train: bool = False, gen: Optional[torch.Generator] = None):
         """Acoustic encoder: ``(B, T, F) -> (B, T', H_enc)`` + lengths."""
-        y, lengths, _ = self.enc_rnn1(x, lengths, train)
+        y, lengths, _ = self.enc_rnn1(x, lengths, train, gen=gen)
         y, lengths = time_reduce(y, lengths,
                                  self.cfg.encoder.time_reduction_factor)
         if self.enc_rnn2 is not None:
-            y, lengths, _ = self.enc_rnn2(y, lengths, train)
+            y, lengths, _ = self.enc_rnn2(y, lengths, train, gen=gen)
         return y, lengths
 
     def predict(self, labels: torch.Tensor, label_lens: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """Prediction net over full label sequences: ``labels (B, U) -> g
         (B, U+1, H_pred)``, a zero SOS embedding first, lengths
-        ``label_lens + 1``."""
-        if train and self.cfg.prediction.embedding_dropout > 0:
-            raise NotImplementedError(
-                "embedding_dropout at train time is not ported yet: "
-                "ROADMAP.md Queue 1, slice 2 (train-time dropout)")
-        B = labels.shape[0]
+        ``label_lens + 1``.  At train time ``embedding_dropout`` drops whole
+        label embeddings (a ``(B, U, 1)`` mask) before the SOS step goes
+        in."""
+        B, U = labels.shape
         emb = self.embedding(labels.long())  # (B, U, E)
+        emb = dropout_ops.dropout(emb, self.cfg.prediction.embedding_dropout,
+                                  train, gen, shape=(B, U, 1))
         emb = torch.cat([emb.new_zeros((B, 1, emb.shape[-1])), emb], dim=1)
-        g, _, _ = self.pred_rnn(emb, label_lens + 1, train)
+        g, _, _ = self.pred_rnn(emb, label_lens + 1, train, gen=gen)
         return g
 
     def init_state(self, n: int, device) -> List[List[LSTMState]]:
@@ -181,10 +204,11 @@ class RNNT(nn.Module):
                                         initial_states=state)
         return g[:, 0, :], new_state
 
-    def joint(self, f: torch.Tensor, g: torch.Tensor,
-              train: bool = False) -> torch.Tensor:
+    def joint(self, f: torch.Tensor, g: torch.Tensor, train: bool = False,
+              gen: Optional[torch.Generator] = None,
+              masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """Joint logits ``(B, T, U+1, V)`` (see :meth:`RNNTJoint.forward`)."""
-        return self.joint_net(f, g, train)
+        return self.joint_net(f, g, train, gen, masks)
 
     def joint_project(self, f: torch.Tensor, g: torch.Tensor):
         """Factored joint first-layer projections for the joint-tail path:
@@ -205,8 +229,8 @@ class RNNT(nn.Module):
 
     def forward(self, x: torch.Tensor, x_lens: torch.Tensor,
                 labels: torch.Tensor, label_lens: torch.Tensor,
-                train: bool = False):
+                train: bool = False, gen: Optional[torch.Generator] = None):
         """Full training forward: ``(logits (B, T', U+1, V), f_lens)``."""
-        f, f_lens = self.encode(x, x_lens, train)
-        g = self.predict(labels, label_lens, train)
-        return self.joint(f, g, train), f_lens
+        f, f_lens = self.encode(x, x_lens, train, gen)
+        g = self.predict(labels, label_lens, train, gen)
+        return self.joint(f, g, train, gen), f_lens

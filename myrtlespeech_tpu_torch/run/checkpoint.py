@@ -4,8 +4,10 @@ A checkpoint holds the whole ``TrainState`` and the loader's cursor:
 
 - the model's ``state_dict`` (parameters and BatchNorm's running
   statistics), the optimizer's state (Adam's moments or SGD's momentum),
-  the step, and the state of the ``torch.Generator`` that SpecAugment draws
-  from;
+  the step, and the states of the two ``torch.Generator``s: SpecAugment's
+  and the dropout masks' (with the latter's device type: see
+  ``_restore_dropout_gen`` for a checkpoint without it, or from another
+  device type);
 - the cursor ``(epoch, batch_in_epoch)``: the loader's order is a pure
   function of ``(seed, epoch)``, so the cursor pins the exact continuation.
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import os
 import re
 import time
+import warnings
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -63,6 +66,8 @@ class CheckpointManager:
             "optimizer": state.optimizer.inner.state_dict(),
             "step": int(state.step),
             "gen": state.gen.get_state(),
+            "dropout_gen": state.dropout_gen.get_state(),
+            "dropout_gen_device": state.dropout_gen.device.type,
             "loader": {"epoch": int(epoch),
                        "batch_in_epoch": int(batch_in_epoch)},
         }
@@ -83,12 +88,14 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def _load(self, target: TrainState, step: Optional[int]) -> dict:
+    def _load(self, step: Optional[int]) -> dict:
+        """The payload on the CPU: ``load_state_dict`` moves the model's
+        and the optimizer's tensors to their parameters' device, and keeps
+        Adam's step counts on the CPU, where a fresh Adam keeps them."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        dev = next(target.model.parameters()).device
-        return torch.load(self._path(step), map_location=dev,
+        return torch.load(self._path(step), map_location="cpu",
                           weights_only=True)
 
     def restore(self, target: TrainState,
@@ -100,8 +107,8 @@ class CheckpointManager:
                        step: Optional[int] = None) -> TrainState:
         """Weights only (a warm start): the model's parameters and BatchNorm
         statistics from the checkpoint; ``target``'s fresh optimizer, step
-        and generator are kept, so the run starts its own LR schedule."""
-        target.model.load_state_dict(self._load(target, step)["model"])
+        and generators are kept, so the run starts its own LR schedule."""
+        target.model.load_state_dict(self._load(step)["model"])
         return target
 
     def restore_with_cursor(self, target: TrainState,
@@ -109,12 +116,39 @@ class CheckpointManager:
                             ) -> Tuple[TrainState, Dict[str, int]]:
         """Loads the checkpoint into ``target`` (a state of the same model,
         e.g. ``train.init_state``'s): ``(state, {"epoch", "batch_in_epoch"})``."""
-        payload = self._load(target, step)
+        payload = self._load(step)
         target.model.load_state_dict(payload["model"])
         target.optimizer.inner.load_state_dict(payload["optimizer"])
         target.step = payload["step"]
-        target.gen.set_state(payload["gen"].cpu())
+        target.gen.set_state(payload["gen"])
+        _restore_dropout_gen(target.dropout_gen, payload)
         return target, dict(payload["loader"])
+
+
+def _restore_dropout_gen(gen: torch.Generator, payload: dict) -> None:
+    """The dropout generator's saved state, where it was saved from a
+    generator of ``gen``'s device type.  Else ``gen`` is reseeded from its
+    own seed and the checkpoint's step, so that a resumed run still draws
+    the same masks each time it is resumed:
+
+    - a checkpoint written before the dropout generator was saved comes
+      from a run that drew no mask (dropout raised then);
+    - a CUDA generator's state (seed and offset) does not load into a CPU
+      generator, nor the reverse, and the two draw different streams, so
+      a run moved between the card and the CPU cannot continue the saved
+      masks anyway (a warning says so)."""
+    saved = payload.get("dropout_gen")
+    device = payload.get("dropout_gen_device")
+    if saved is not None and device == gen.device.type:
+        gen.set_state(saved)
+        return
+    if saved is not None:
+        warnings.warn(
+            f"the checkpoint's dropout generator was on {device}, this "
+            f"run's is on {gen.device.type}: reseeded from step "
+            f"{payload['step']}, so the dropout masks from here on differ "
+            f"from an uninterrupted run's")
+    gen.manual_seed(gen.initial_seed() + int(payload["step"]))
 
 
 def save_params_npz(path: str, model: torch.nn.Module) -> None:

@@ -63,24 +63,31 @@ from myrtlespeech_tpu_torch.run.memory import plan_transducer_chunk
 Batch = Dict[str, torch.Tensor]
 
 
+# Mixed into the seed of the dropout generator, so that on the CPU it does
+# not replay SpecAugment's stream.
+DROPOUT_SEED_MIX = 0x64726F70
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters and BatchNorm statistics), the optimizer
-    (its state), the step count from 0, and the generator that SpecAugment
-    draws from."""
+    (its state), the step count from 0, the CPU generator that SpecAugment
+    draws from, and the generator on the model's device that the dropout
+    masks are drawn from."""
 
     model: nn.Module
     optimizer: Optimizer
     step: int
     gen: torch.Generator
+    dropout_gen: torch.Generator
 
 
 def init_state(task: Task, seed: int = 0,
                params: Optional[Mapping[str, torch.Tensor]] = None,
                device: str = "cuda") -> TrainState:
     """A model on ``device`` with seeded random weights (``params`` None) or
-    the given state_dict (e.g. from ``weights.params_from_npz``), and a
-    fresh optimizer."""
+    the given state_dict (e.g. from ``weights.params_from_npz``), a fresh
+    optimizer, and both generators seeded from ``seed``."""
     dev = resolve_device(device)
     model = task.build_model()
     if params is None:
@@ -88,9 +95,11 @@ def init_state(task: Task, seed: int = 0,
     else:
         model.load_state_dict(params)
     model.to(dev)
-    return TrainState(model=model,
-                      optimizer=task.build_optimizer(model.parameters()),
-                      step=0, gen=torch.Generator().manual_seed(seed))
+    return TrainState(
+        model=model, optimizer=task.build_optimizer(model.parameters()),
+        step=0, gen=torch.Generator().manual_seed(seed),
+        dropout_gen=torch.Generator(device=dev).manual_seed(
+            seed ^ DROPOUT_SEED_MIX))
 
 
 def to_device(batch: Mapping[str, Any], device) -> Batch:
@@ -149,39 +158,44 @@ def _select_joint_path(task: Task, f: torch.Tensor, g: torch.Tensor,
 
 
 def _forward(task: Task, model: nn.Module, batch: Batch, train: bool,
-             gen: Optional[torch.Generator] = None
+             gen: Optional[torch.Generator] = None,
+             dropout_gen: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Tuple[Optional[torch.Tensor],
                                             torch.Tensor]]:
     """preprocess -> model -> loss.  Transducer: encode -> predict -> joint
     path; CTC: the model's logits into the CTC loss (BatchNorm moves its
-    running statistics when ``train``).  Returns ``(loss, (logits,
-    out_lens))``, ``logits`` None on a fused transducer path."""
+    running statistics when ``train``).  At train time SpecAugment draws
+    from ``gen`` and dropout from ``dropout_gen``.  Returns ``(loss,
+    (logits, out_lens))``, ``logits`` None on a fused transducer path."""
     feats, flens = task.preprocess(batch["wav"], batch["wav_lens"], train,
                                    gen)
     if not task.transducer:
-        logits, out_lens = model(feats, flens, train)
+        logits, out_lens = model(feats, flens, train, dropout_gen)
         loss = task.loss_fn(logits, out_lens, batch["labels"],
                             batch["label_lens"],
                             weights=_batch_weights(batch))
         return loss, (logits, out_lens)
-    f, f_lens = model.encode(feats, flens, train)
-    loss, logits = _transducer_loss(task, model, f, f_lens, batch, train)
+    f, f_lens = model.encode(feats, flens, train, dropout_gen)
+    loss, logits = _transducer_loss(task, model, f, f_lens, batch, train,
+                                    dropout_gen)
     return loss, (logits, f_lens)
 
 
 def _transducer_loss(task: Task, model: nn.Module, f: torch.Tensor,
-                     f_lens: torch.Tensor, batch: Batch, train: bool
+                     f_lens: torch.Tensor, batch: Batch, train: bool,
+                     dropout_gen: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """predict -> joint path -> loss from the encoder's output: ``(loss,
     logits)``, ``logits`` None on a fused path."""
-    g = model.predict(batch["labels"], batch["label_lens"], train)
+    g = model.predict(batch["labels"], batch["label_lens"], train,
+                      dropout_gen)
     fused, chunk = _select_joint_path(task, f, g, backward=train)
     if fused is not None:
         loss = fused(model, f, f_lens, g, batch["labels"],
                      batch["label_lens"], train, chunk_size=chunk,
-                     weights=_batch_weights(batch))
+                     weights=_batch_weights(batch), gen=dropout_gen)
         return loss, None
-    logits = model.joint(f, g, train)
+    logits = model.joint(f, g, train, dropout_gen)
     loss = task.loss_fn(logits, f_lens, batch["labels"], batch["label_lens"],
                         weights=_batch_weights(batch))
     return loss, logits
@@ -195,7 +209,8 @@ def train_step_body(task: Task) -> Callable:
 
     def train_step(state: TrainState, batch: Batch):
         state.optimizer.zero_grad()
-        loss, _ = _forward(task, state.model, batch, True, state.gen)
+        loss, _ = _forward(task, state.model, batch, True, state.gen,
+                           state.dropout_gen)
         loss.backward()
         gnorm = state.optimizer.step(state.step)
         # In the JAX step's order (a jitted dict's keys come out sorted),
@@ -270,7 +285,8 @@ def fit(task: Task, epochs: Optional[int] = None, callbacks=(),
     has an eval dataset.  Batches go to ``device`` through ``to_device``.
     ``initial_state``/``start_epoch``/``skip_batches`` resume exactly: the
     loader's order is a pure function of ``(seed, epoch)``, the LR schedule
-    keys off ``state.step`` and SpecAugment's generator is in the state.
+    keys off ``state.step`` and the SpecAugment and dropout generators are
+    in the state.
     Without ``initial_state`` the model starts from ``init_state(task,
     seed)``.  ``eval_only`` runs one eval stage.
 

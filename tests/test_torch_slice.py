@@ -87,7 +87,10 @@ def test_port_imports_no_jax():
         "          'run.checkpoint', 'run.cli', 'run.supervisor',\n"
         "          'utils.trace', 'configs.ctc_tiny_fake',\n"
         "          'decoding.rnnt_beam', 'configs.synthetic_rnnt',\n"
-        "          'configs.rnn_t_960_beam'):\n"
+        "          'configs.rnn_t_960_beam', 'ops.dropout',\n"
+        "          'configs.synthetic_hard_rnnt_preddrop',\n"
+        "          'configs.synthetic_hard_ctc',\n"
+        "          'configs.synthetic_hard_rnnt_ft'):\n"
         "    assert 'myrtlespeech_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('myrtlespeech_tpu_torch.')]))\n")
