@@ -1,9 +1,11 @@
 """Builders: TaskConfig -> modules and callables for serving and training.
 
-Port of ``myrtlespeech_tpu/builders/build.py`` for the RNN-T and
-DeepSpeech2: ``vocab_size`` (``:58``), ``build_preprocess`` and
+Port of ``myrtlespeech_tpu/builders/build.py`` for the RNN-T,
+DeepSpeech1 and DeepSpeech2: ``vocab_size`` (``:58``), ``build_preprocess``
+(log-mel or MFCC, standardize, context frames, SpecAugment) and
 ``preprocess_out_features`` (``:67-137``), ``validate_model_shapes`` for a
-conv block and ``build_model`` for RNN-T and DeepSpeech2 (``:145-202``),
+conv block and ``build_model`` for RNN-T, DeepSpeech1 and DeepSpeech2
+(``:145-202``),
 the CTC and transducer ``build_loss`` (``:213-275``; its
 ``weighted_reduce`` lives in ``ops/rnnt.py``),
 ``build_fused_transducer_loss`` (``:277-311``),
@@ -44,6 +46,7 @@ from myrtlespeech_tpu_torch.decoding.lm import load_bigram_lm, load_word_lm
 from myrtlespeech_tpu_torch.decoding.rnnt_beam import rnnt_beam_decode
 from myrtlespeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
 from myrtlespeech_tpu_torch.models.cnn import conv_block_out_features
+from myrtlespeech_tpu_torch.models.deep_speech_1 import DeepSpeech1
 from myrtlespeech_tpu_torch.models.deep_speech_2 import DeepSpeech2
 from myrtlespeech_tpu_torch.models.rnn_t import RNNT
 from myrtlespeech_tpu_torch.ops import features as F
@@ -71,10 +74,11 @@ def build_preprocess(steps: Tuple[S.PreProcessStepConfig, ...]) -> Callable:
     """Build ``fn(wav, wav_lens, train=False, gen=None) -> (feats,
     frame_lens)``.
 
-    TRAIN-stage steps are skipped at eval.  SpecAugment draws its masks from
-    ``gen`` (a ``torch.Generator``), which a train-time call must pass.
-    Steps of the CTC family (MFCC, context frames) raise
-    ``NotImplementedError``.
+    TRAIN-stage steps are skipped at eval.  The MFCC step emits log-mel
+    features with ``log_mel_only`` and MFCCs (the DCT after the log)
+    otherwise; context frames stack each frame's neighbours (DeepSpeech1).
+    SpecAugment draws its masks from ``gen`` (a ``torch.Generator``), which
+    a train-time call must pass.
     """
 
     def apply(wav: torch.Tensor, wav_lens: torch.Tensor, train: bool = False,
@@ -87,17 +91,25 @@ def build_preprocess(steps: Tuple[S.PreProcessStepConfig, ...]) -> Callable:
             if step_cfg.stage is S.StageSelector.EVAL and train:
                 continue
             st = step_cfg.step
-            if isinstance(st, S.MFCCConfig) and st.log_mel_only:
+            if isinstance(st, S.MFCCConfig):
                 n_fft = st.n_fft or _next_pow2(
                     int(st.win_length_ms * st.sample_rate / 1000))
                 win = int(st.win_length_ms * st.sample_rate / 1000)
                 hop = int(st.hop_length_ms * st.sample_rate / 1000)
-                x, lens = F.log_mel_spectrogram(
-                    x, lens, sample_rate=st.sample_rate, n_fft=n_fft,
-                    win_length=win, hop_length=hop, n_mels=st.n_mels)
+                if st.log_mel_only:
+                    x, lens = F.log_mel_spectrogram(
+                        x, lens, sample_rate=st.sample_rate, n_fft=n_fft,
+                        win_length=win, hop_length=hop, n_mels=st.n_mels)
+                else:
+                    x, lens = F.mfcc(
+                        x, lens, sample_rate=st.sample_rate, n_fft=n_fft,
+                        win_length=win, hop_length=hop, n_mels=st.n_mels,
+                        n_mfcc=st.n_mfcc)
                 is_features = True
             elif isinstance(st, S.StandardizeConfig):
                 x = F.standardize(x, lens, eps=st.eps)
+            elif isinstance(st, S.ContextFramesConfig):
+                x = F.add_context_frames(x, st.n_context)
             elif isinstance(st, S.SpecAugmentConfig):
                 if gen is None:
                     raise ValueError("SpecAugment needs a torch.Generator "
@@ -109,10 +121,7 @@ def build_preprocess(steps: Tuple[S.PreProcessStepConfig, ...]) -> Callable:
                     n_time_masks=st.n_time_masks,
                     time_mask_ratio=st.time_mask_ratio)
             else:
-                raise NotImplementedError(
-                    f"preprocess step {type(st).__name__} is not ported "
-                    "yet: ROADMAP.md Queue 1 item 5 (DeepSpeech1: MFCC, "
-                    "context frames)")
+                raise ValueError(f"unknown preprocess step {st}")
         if not is_features:
             x = x[..., None]  # (B, S, 1) raw-sample "features"
         return x, lens
@@ -156,12 +165,15 @@ def build_model(cfg: S.SpeechToTextConfig, dtype: torch.dtype,
     if isinstance(m, S.RNNTConfig):
         return RNNT(m, vocab_size=vocab_size(cfg), in_features=in_features,
                     dtype=dtype)
+    if isinstance(m, S.DeepSpeech1Config):
+        return DeepSpeech1(m, out_features=vocab_size(cfg),
+                           in_features=in_features, dtype=dtype)
     if isinstance(m, S.DeepSpeech2Config):
         return DeepSpeech2(m, out_features=vocab_size(cfg),
                            in_features=in_features, dtype=dtype)
     raise NotImplementedError(
-        f"{type(m).__name__} is not ported yet: ROADMAP.md Queue 1 item 5 "
-        "(DeepSpeech1) or item 6 (VGG, encoder-decoder)")
+        f"{type(m).__name__} is not ported yet: ROADMAP.md Queue 1 item 6 "
+        "(VGG, encoder-decoder)")
 
 
 def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:

@@ -1,9 +1,9 @@
 // K2, per-step route: the backward LSTM recurrence (BPTT), one launch per
 // reverse step, written by hand for Hopper (sm_90a).
 //
-// The main paths run the persistent K2 (lstm_bwd_persistent.cu); this
-// route takes the shapes the persistent kernel cannot hold (see
-// lstm_fwd.cu's note).
+// Most main paths run the persistent K2 (lstm_bwd_persistent.cu); this
+// route takes the shapes the persistent kernel cannot hold, DeepSpeech1's
+// BiLSTM-2048 among them (see lstm_fwd.cu's note).
 //
 // Replaces myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_bwd_kernel (reached
 // through _bwd_pallas_call).  It walks time in reverse over the forward's

@@ -1,11 +1,12 @@
 // K1, per-step route: the forward LSTM recurrence, one launch per time step,
 // written by hand for Hopper (sm_90a).
 //
-// The main paths run the persistent K1 (lstm_fwd_persistent.cu), which
+// Most main paths run the persistent K1 (lstm_fwd_persistent.cu), which
 // keeps W_hh in shared memory for the whole call; ops/cuda/lstm_kernel.py's
-// lstm_route sends here only shapes whose grid or shared memory the
-// persistent kernel cannot hold (H over some 1,050 on an H100, B over 128),
-// which no config of the repo has.
+// lstm_route sends here the shapes whose grid or shared memory the
+// persistent kernel cannot hold (H over some 1,050 on an H100, B over 128):
+// DeepSpeech1's BiLSTM-2048, in training and serving, and the RNN-T beam's
+// prediction net at B*W rows.
 //
 // Replaces myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_lstm_kernel (reached
 // through _lstm_pallas_fwd_call).  For every time step t and every row b:

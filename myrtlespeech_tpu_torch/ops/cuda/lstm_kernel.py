@@ -18,7 +18,9 @@ and bound with ``ctypes``:
   step (the launch boundary is the grid-wide barrier), each block re-reading
   its ``W_hh`` slice from L2; for shapes whose grid or shared memory the
   persistent kernels cannot hold (H over some 1,050 on an H100, B over
-  128).  No config of the repo has such a shape.
+  128).  DeepSpeech1's BiLSTM-2048 (256 blocks of 8 units, over an H100's
+  132 SMs) takes this route in training and serving, and the RNN-T beam's
+  prediction net at B*W rows in serving.
 
 What bounds them on the card: each step is a (B x H) @ (H x 4H) product
 (K1: ``h @ W_hh``; K2: ``dz @ W_hh^T``) in a serial chain of T steps, and

@@ -3,8 +3,9 @@
 Every dropout site of the port calls :func:`dropout`: between stacked RNN
 layers (``models/rnn.py``), after each hidden activation of a fully
 connected stack (``models/fully_connected.py``: DeepSpeech2's MLP and the
-RNN-T joint's tail) and, per token, on the prediction net's embeddings
-(``models/rnn_t.py``).  With ``keep = bernoulli(1 - rate)`` drawn at the
+RNN-T joint's tail; DeepSpeech1's four hidden dense layers,
+``models/deep_speech_1.py``) and, per token, on the prediction net's
+embeddings (``models/rnn_t.py``).  With ``keep = bernoulli(1 - rate)`` drawn at the
 mask's shape and broadcast over the input,
 
     dropout(x) = where(keep, x / keep_prob, 0)

@@ -1,13 +1,14 @@
-"""Audio features: framing, power STFT, log-mel filterbank, standardize.
+"""Audio features: framing, power STFT, log-mel filterbank, MFCC,
+standardize and DeepSpeech1's context frames.
 
-Port of ``myrtlespeech_tpu/ops/features.py:28-191``:
+Port of ``myrtlespeech_tpu/ops/features.py``:
 
   waveform (B, S) -> frames (B, T, n_fft) -> |rFFT|^2 -> mel (matmul)
-  -> log -> features (B, T, n_mels)
+  -> log -> [DCT matmul] -> features (B, T, n_mels or n_mfcc)
 
 Frame counts follow torchaudio's ``center=True`` convention
-(``T = S // hop + 1``).  The filterbank and window are built in numpy, as in
-the JAX package, and moved to the input's device.  The transform is
+(``T = S // hop + 1``).  The filterbank, window and DCT are built in numpy,
+as in the JAX package, and moved to the input's device.  The transform is
 ``torch.fft.rfft`` on every device (the JAX package's CPU path; its TPU path
 wrote the DFT as two matmuls to reach the MXU).
 """
@@ -53,6 +54,19 @@ def mel_filterbank(n_mels: int, n_fft: int, sample_rate: int,
     fb = np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
     fb.setflags(write=False)
     return fb
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n_mfcc: int, n_mels: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix ``(n_mels, n_mfcc)`` (torchaudio 'ortho')."""
+    n = np.arange(n_mels, dtype=np.float64)
+    k = np.arange(n_mfcc, dtype=np.float64)
+    dct = np.cos(math.pi / n_mels * (n[:, None] + 0.5) * k[None, :])
+    dct *= math.sqrt(2.0 / n_mels)
+    dct[:, 0] *= 1.0 / math.sqrt(2.0)
+    dct = dct.astype(np.float32)
+    dct.setflags(write=False)
+    return dct
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,6 +136,20 @@ def log_mel_spectrogram(x: torch.Tensor, sample_lens: torch.Tensor, *,
     return feats, num_frames(sample_lens, hop_length).to(torch.int32)
 
 
+def mfcc(x: torch.Tensor, sample_lens: torch.Tensor, *,
+         sample_rate: int = 16000, n_fft: int = 512, win_length: int = 400,
+         hop_length: int = 160, n_mels: int = 80, n_mfcc: int = 80,
+         eps: float = 1e-10):
+    """Batched MFCC: :func:`log_mel_spectrogram`, then the orthonormal
+    DCT-II as one float32 product.  Returns ``(features (B, T, n_mfcc) fp32,
+    frame_lens (B,) int32)``."""
+    logmel, frame_lens = log_mel_spectrogram(
+        x, sample_lens, sample_rate=sample_rate, n_fft=n_fft,
+        win_length=win_length, hop_length=hop_length, n_mels=n_mels, eps=eps)
+    dct = torch.from_numpy(dct_matrix(n_mfcc, n_mels).copy())
+    return logmel @ dct.to(logmel.device), frame_lens
+
+
 def standardize(feats: torch.Tensor, frame_lens: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """Per-utterance mean/variance normalisation over valid frames only."""
@@ -132,3 +160,18 @@ def standardize(feats: torch.Tensor, frame_lens: torch.Tensor,
     var = torch.sum(((feats - mean) * mask) ** 2, dim=(1, 2),
                     keepdim=True) / n
     return (feats - mean) * torch.rsqrt(var + eps) * mask
+
+
+def add_context_frames(feats: torch.Tensor, n_context: int) -> torch.Tensor:
+    """DeepSpeech1's context stacking: each frame with its ``n_context``
+    neighbours on either side, ``(B, T, F) -> (B, T, F * (2n + 1))``, the
+    earliest neighbour first.
+
+    Zeros are padded only at the tensor's edges, as in the JAX package: a
+    frame near the end of a shorter row sees that row's padded frames
+    (zero after :func:`standardize`), and a padded frame sees its row's
+    last valid ones."""
+    T = feats.shape[1]
+    padded = torch.nn.functional.pad(feats, (0, 0, n_context, n_context))
+    return torch.cat([padded[:, i:i + T] for i in range(2 * n_context + 1)],
+                     dim=-1)

@@ -5,8 +5,9 @@ Port of the decode half of ``myrtlespeech_tpu/run/train.py::eval_step_body``
 
 - an RNN-T: features -> ``RNNT.encode`` -> ``joint_project_f`` -> the
   config's greedy or beam decoder (``decoding/rnnt_{greedy,beam}.py``);
-- a CTC model (DeepSpeech2): features -> the model's logits -> the config's
-  CTC decoder (greedy, or prefix beam search with its LMs).
+- a CTC model (DeepSpeech1 or DeepSpeech2): features -> the model's
+  logits -> the config's CTC decoder (greedy, or prefix beam search with
+  its LMs).
 
 Every LSTM layer runs through K1 (``ops/cuda/lstm_kernel.py``) on the card;
 the decoders are PyTorch on the card, and the only copy to the host is the
@@ -15,6 +16,7 @@ transcript's at the end.
     python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_en --batch 32 --seconds 5
     python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_960_beam --batch 32 --seconds 5
     python -m myrtlespeech_tpu_torch.run.infer --config deep_speech_2_en --batch 32 --seconds 16.7
+    python -m myrtlespeech_tpu_torch.run.infer --config deep_speech_1_en --batch 32 --seconds 16.7
 
 runs a config of ``myrtlespeech_tpu_torch/configs`` with seeded random
 weights on seeded random audio and prints one JSON line of timings.

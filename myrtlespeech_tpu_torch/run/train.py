@@ -12,10 +12,12 @@ place:
     preprocess (SpecAugment at train time) -> RNNT.encode -> RNNT.predict
     -> joint path -> lattice (K3, K4) -> backward -> clip, L2, Adam
 
-or, for a CTC model (DeepSpeech2),
+or, for a CTC model (DeepSpeech1 or DeepSpeech2),
 
     preprocess -> DeepSpeech2 (conv block, BiLSTMs with masked BatchNorm,
-    FC) -> CTC lattice (K7, K8) -> backward -> clip, L2, SGD
+    FC) or DeepSpeech1 (3 FC, BiLSTM, FC; MFCC and context frames in the
+    preprocess) -> CTC lattice (K7, K8) -> backward -> clip, L2, SGD or
+    Adam
 
 Every LSTM layer runs K1 forward and K2 backward on the card.  BatchNorm
 takes the batch's statistics and moves its running ones in a train step,
@@ -29,6 +31,7 @@ topology.
     python -m myrtlespeech_tpu_torch.run.train --config rnn_t_en --batch 32 --seconds 5 --labels 64 --steps 5
     python -m myrtlespeech_tpu_torch.run.train --config rnn_t_en --batch 128 --seconds 16.7 --labels 214 --steps 3
     python -m myrtlespeech_tpu_torch.run.train --config deep_speech_2_en --batch 32 --seconds 16.7 --labels 214
+    python -m myrtlespeech_tpu_torch.run.train --config deep_speech_1_en --batch 32 --seconds 16.7 --labels 214
 
 (the second is over the budget of an 80 GB card and trains through K5/K6).
 
