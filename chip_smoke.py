@@ -2,26 +2,31 @@
 
     python3 chip_smoke.py
 
-Phases, in order, each printing one JSON line; any failure exits non-zero:
+Phases, in order, each printing one JSON line (with ``elapsed_s``, the
+seconds since the start); any failure exits non-zero:
 
 1. card      the card's name and power limit (nvidia-smi).
 2. build     every kernel under ``myrtlespeech_tpu_torch/csrc``, one nvcc per
              source, all started together; the build time and ptxas report.
 3. k1        K1 (the LSTM recurrence) against its plain PyTorch version at the
-             flagship's encoder shapes and its prediction-net shape, with
-             ragged lengths, on both routes (the persistent kernel, which
-             these shapes take, and the per-step kernel): the largest error
+             flagship's encoder shapes and its prediction-net shape, and at
+             DeepSpeech1's BiLSTM-2048 (T=1671), with ragged lengths, on
+             two routes (the on-chip kernel that the shape takes, persistent
+             for the flagship's and wide for DeepSpeech1's, where two calls
+             must be bit-equal, and the per-step kernel): the largest error
              per output, and each route's, the plain version's and cuDNN's
              ``nn.LSTM`` times (CUDA events, median), beside the least time
              the card could take; each route's time again with its launches
              queued behind a spin kernel (the device's own time, without the
              host's launch rate).
 4. k2        K2 (the LSTM backward) against its plain version at the train
-             step's shapes (T=501 and 251 at H=1024, T=65 at H=320; B=32,
-             ragged lengths, from K1's own saved tensors), on both routes:
-             errors, and each route's (also queued, as in k1), the plain
-             version's and cuDNN's ``nn.LSTM`` backward times (the yardstick
-             also computes dW and dx).
+             step's shapes (T=501 and 251 at H=1024, T=65 at H=320) and
+             DeepSpeech1's (T=1671, H=2048; B=32, ragged lengths, from K1's
+             own saved tensors), on two routes as in k1: errors, and each
+             route's (also queued, as in k1; at DeepSpeech1's shape also the
+             wide K2 without clusters), the plain version's and cuDNN's
+             ``nn.LSTM`` backward times (the yardstick also computes dW and
+             dx).
 5. k34       K3 and K4 (the transducer lattice forward and backward) against
              their plain versions on the 5 s (B=32, T'=251, U+1=65), 15 s
              (T'=751, U+1=193) and long-step (B=128, T'=836, U+1=215)
@@ -117,22 +122,24 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              width (MFCC, 9 context frames a side, 3 FC-2048, BiLSTM-2048,
              FC-2048) trains on B=32 x 16.7 s with 214 labels (T=1671, no
              time stride) through ``make_train_step``: its BiLSTM-2048 is
-             over the persistent kernels' grid, so K1 and K2 take the
-             per-step route alone, 3,342 launches each a step (2 calls of
-             1,671 steps), K7 and K8 one, no plain version; 4 dropout masks
-             of (32, 1671, 2048) a step, their kept share; finite loss,
-             every parameter moved; step time, split, peak memory, one
-             traced step; every K1 and K2 call of one step (both
-             directions) and the K7 and K8 calls against their plain
+             over the persistent kernels' grid, so K1 and K2 take the wide
+             route, 2 launches each a step (one a direction), none on the
+             per-step route, K7 and K8 one, no plain version; 4 dropout
+             masks of (32, 1671, 2048) a step, their kept share; finite
+             loss, every parameter moved; step time, split, peak memory,
+             one traced step and one on the per-step route; every K1 and K2
+             call of one step (both directions; the wide route twice,
+             bit-equal) and the K7 and K8 calls against their plain
              versions, plain, cuDNN and ``F.ctc_loss`` times; the step's
              loss and gradient norm against the plain versions forced on the
              card.  Then ``ds1_serve``: the same model with seeded weights
              transcribes B=32 x 16.7 s of noise through
              ``build_transcriber`` and its greedy decoder: three timed runs,
-             K1 3,342 per-step launches a batch and nothing else, no plain
-             version, a stage split, a traced run, the logits against the
-             plain versions forced on the card, K1's calls against the plain
-             version, plain and cuDNN replays.  Then ``rnnt_beam_serve``:
+             K1 2 wide launches a batch and nothing else, no plain version,
+             a stage split, a traced run and one on the per-step route, the
+             logits against the plain versions forced on the card, K1's
+             calls against the plain version (twice, bit-equal), plain and
+             cuDNN replays.  Then ``rnnt_beam_serve``:
              ``rnn_t_960_beam`` (the
              flagship model, 5 encoder LSTM-1024 and 2 prediction LSTM-320
              layers, joint 512, V=29) with seeded weights transcribes
@@ -194,8 +201,8 @@ Phases, in order, each printing one JSON line; any failure exits non-zero:
              K6 where the joint tail is taken), finite losses and WER.
              ``fit_ds1``: ``deep_speech_1_en`` through the CLI in a
              subprocess, 8 batches of 32 and the 64-utterance eval split
-             decoded greedily: K1/K2 2 x T per-step launches a step (T the
-             batch's frames), K7/K8 one, no plain version, 4 dropout masks a
+             decoded greedily: K1/K2 2 wide launches a step (one a
+             direction), K7/K8 one, no plain version, 4 dropout masks a
              step and their kept share, finite losses and WER; then one step
              in process on the longest batch with its K1/K2/K7/K8 calls
              against the plain versions (``hard_step_replays``).
@@ -230,16 +237,18 @@ Then a ``kernels`` line (one entry per ported kernel: ``ms`` is the kernel's
 device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
 device times of the replays; ``bound_ms`` counted from the recorded calls;
 K1's and K2's entries also hold ``us_per_step``, the per-step route's
-``stepwise_ms`` and ``stepwise_us_per_step``, and ``paths``: these figures
-for each main path, serve, train, long, ds2 and ds1 (the per-step route),
+``stepwise_ms`` and ``stepwise_us_per_step``, the wide route's source, and
+``paths``: these figures for each main path, serve, train, long, ds2 and
+ds1 (the wide route),
 K1's also ds2_serve, ds1_serve, rnnt_beam_serve, with its launches and
 device ms by route, and trained_beam, with its launches by route and
 errors; K7 and K8 ds1; K1, K2, K7 and K8 fit_ds1, and K1, K2, K3, K4, K7
 and K8 the hard-corpus fits' paths, fit_preddrop, fit_hard_ctc and
 ft_hard_rnnt, with their errors against the plain versions), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every main
-path but the RNN-T beam's and DeepSpeech1's also asserts that K1's and
-K2's per-step route launched no time; DeepSpeech1's that it alone did.
+path but the RNN-T beam's also asserts that K1's and K2's per-step route
+launched no time; DeepSpeech1's also that every K1 and K2 launch was the
+wide route's.
 Without a CUDA card the script exits non-zero before it prints any result.
 """
 
@@ -405,15 +414,17 @@ DS2_SERVE_LAUNCHES = {"k1": 10, "k2": 0, "k1_step": 0, "k2_step": 0,
                       "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0, "k8": 0}
 # The DeepSpeech1 train step: deep_speech_1_en at B=32 x 16.7 s with 214
 # labels: T=1671 frames (no layer strides in time), S=429 lattice columns.
-# Its BiLSTM-2048 takes K1's and K2's per-step route (256 blocks of 8 units
-# do not fit one an SM on the card's 132): one launch a step, T a call, so
-# K1 and K2 count 2 x 1671 launches a step (2 calls each, one a direction),
-# all of them the per-step kernels'; K7 and K8 once.  Dropout draws one
-# (32, 1671, 2048) mask after each of the 4 hidden dense layers a step.
+# Its BiLSTM-2048 takes K1's and K2's wide route (128 blocks of 16 units, K2
+# in clusters of 2; 256 blocks of the persistent route's 8 units do not fit
+# one an SM on the card's 132): one launch a call, so K1 and K2 count 2
+# launches a step (2 calls each, one a direction), all of them the wide
+# kernels' (``WIDE_LAUNCHES``) and none the per-step route's; K7 and K8
+# once.  Dropout draws one (32, 1671, 2048) mask after each of the 4 hidden
+# dense layers a step.  ``DS1_LSTM_STEPS`` counts the time steps of the two
+# calls: the per-step route's launches on the same step (``stepwise_trace``).
 DS1_FRAMES, DS1_WIDTH, DS1_DROPOUT_MASKS = 1671, 2048, 4
 DS1_LSTM_STEPS = 2 * DS1_FRAMES
-DS1_LAUNCHES = {"k1": DS1_LSTM_STEPS, "k2": DS1_LSTM_STEPS,
-                "k1_step": DS1_LSTM_STEPS, "k2_step": DS1_LSTM_STEPS,
+DS1_LAUNCHES = {"k1": 2, "k2": 2, "k1_step": 0, "k2_step": 0,
                 "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 1, "k8": 1}
 DS1_STEPS = 3
 # The DS1 serve path (greedy): K1 on both directions, nothing else.
@@ -430,7 +441,9 @@ DS1_STEP_CALLS = {"k1": 2, "k2": 2, "k3": 0, "k4": 0, "k7": 1, "k8": 1}
 # and after 5 steps, where the plain K1 summing h @ W_hh in another fp32
 # order (two halves of H) moved it by 1.6e-3 and 3.0e-6, each leaf by up
 # to 5.4e-3 either way (port_tools/ctc_step_order.py; PERF.md): 2e-2
-# leaves some 4x room over the kernels' largest reading.
+# leaves some 4x room over the kernels' largest reading.  Those readings
+# were the per-step K1/K2's; the wide ones, which now run this step, moved
+# it by 5.7e-3 in their first run of this phase (PERF.md).
 DS1_PLAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-2}
 # DS1's serve logits with the kernels against the plain versions forced on
 # the card, over the logits' largest magnitude: the bf16 model's tolerance
@@ -492,10 +505,15 @@ CTC_PLAIN_TOL = {"loss": 1e-4, "grad_norm": 5e-3}
 # The card's name and power limit (nvidia-smi), set by ``phase_card``: every
 # later line carries it.
 CARD = {}
+# Every phase line carries ``elapsed_s``, the seconds since this module was
+# loaded: where the script's 1,200 s go.
+_START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **CARD, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **CARD, **fields,
+                      "elapsed_s": time.perf_counter() - _START}),
+          flush=True)
 
 
 def cuda_ms(fn, reps: int, queued: bool = False) -> float:
@@ -672,41 +690,65 @@ def check_errors(errs, label: str) -> None:
                              f"tolerance {K1_TOL}")
 
 
+# The routes that the k1 and k2 phases time as ``kernel``, by the shapes'
+# route (the per-step route is timed beside each as ``stepwise``).
+def _route_fns():
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+
+    return {"persistent": (k.lstm_fwd_persistent, k.lstm_bwd_persistent),
+            "wide": (k.lstm_fwd_wide, k.lstm_bwd_wide)}
+
+
 def phase_k1(dev):
     """K1 against its plain version, timed, at the main path's shapes, on
-    both routes: the persistent kernel (where :func:`lstm_route` sends these
-    shapes) and the per-step kernel, each also queued behind a spin kernel.
+    both routes: the on-chip kernel (persistent or wide, where
+    :func:`lstm_route` sends the shape) and the per-step kernel, each also
+    queued behind a spin kernel.
 
     The flagship's encoder runs K1 at T=501 (layers 1-2, input widths 80 and
     1024) and T=251 (layers 3-5, input widths 2048, 1024, 1024), H=1024; its
-    prediction net at T=1, H=320, once per layer and decode iteration.
+    prediction net at T=1, H=320, once per layer and decode iteration; these
+    take the persistent route.  DeepSpeech1's BiLSTM-2048 runs it at T=1671
+    (input width 2048, B=32) on the wide route: there two calls are also
+    held bit-equal.
     """
     from torch import nn
 
     from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
 
     B = FLAGSHIP_BATCH
-    # label: (T, H, input widths of the layers that run it); the encoder
-    # starts from a zero state, the prediction net from a carried one.
-    shapes = {"enc_T501": (501, 1024, (80, 1024)),
-              "enc_T251": (251, 1024, (2048, 1024, 1024)),
-              "pred_T1": (1, 320, (320,))}
+    # label: (T, H, input widths of the layers that run it, route); the
+    # encoders start from a zero state, the prediction net from a carried
+    # one.
+    shapes = {"enc_T501": (501, 1024, (80, 1024), "persistent"),
+              "enc_T251": (251, 1024, (2048, 1024, 1024), "persistent"),
+              "pred_T1": (1, 320, (320,), "persistent"),
+              "ds1_T1671": (DS1_FRAMES, DS1_WIDTH, (DS1_WIDTH,), "wide")}
     torch.manual_seed(0)  # the yardstick's weights and inputs
-    for i, (label, (T, H, widths)) in enumerate(shapes.items()):
+    for i, (label, (T, H, widths, want_route)) in enumerate(shapes.items()):
         args = _k1_case(T, B, H, seed=10 + i, dev=dev,
                         random_state=label == "pred_T1")
         route = k._route(dev, B, H)
-        if route != "persistent":
-            raise AssertionError(f"K1 {label} takes the {route} route")
+        if route != want_route:
+            raise AssertionError(f"K1 {label} takes the {route} route, not "
+                                 f"the {want_route}")
         want = k.lstm_fwd_reference(*args)
-        errs = k1_errors(k.lstm_fwd(*args), want, label)
+        got = k.lstm_fwd(*args)
+        errs = k1_errors(got, want, label)
         check_errors(errs, label)
+        bit_equal = None
+        if route == "wide":
+            bit_equal = all(torch.equal(a, b)
+                            for a, b in zip(got, k.lstm_fwd(*args)))
+            if not bit_equal:
+                raise AssertionError(f"K1 {label}: two calls differ")
+        del got
         step_errs = k1_errors(k.lstm_fwd_stepwise(*args), want, label)
         check_errors(step_errs, f"{label} per-step route")
         del want
         reps = 20 if T > 1 else 200
         times = {}
-        for name, fn in (("kernel", k.lstm_fwd_persistent),
+        for name, fn in (("kernel", _route_fns()[route][0]),
                          ("stepwise", k.lstm_fwd_stepwise)):
             times[f"{name}_ms"] = cuda_ms(lambda: fn(*args), reps)
             times[f"{name}_queued_ms"] = cuda_ms(lambda: fn(*args), 5,
@@ -730,7 +772,8 @@ def phase_k1(dev):
         bound_ms, bound_by = bound(*k1_work(T, B, H))
         # Per-call event times: at T=1 they hold the wrapper's host time.
         emit("k1", shape=label, T=T, B=B, H=H, route=route, max_abs_err=errs,
-             stepwise_max_abs_err=step_errs, **times, plain_ms=plain_ms,
+             stepwise_max_abs_err=step_errs, two_calls_bit_equal=bit_equal,
+             **times, plain_ms=plain_ms,
              library_ms=dict(zip(widths, lib)), bound_ms=bound_ms,
              bound_by=bound_by, tolerance=K1_TOL)
 
@@ -879,24 +922,44 @@ def cudnn_replay(calls, kind: str, dev, bidirectional: bool = False):
 
 def phase_k2(dev):
     """K2 against its plain version, timed, at the train step's shapes, on
-    both routes, each also queued (as in k1)."""
+    both routes, each also queued (as in k1): the flagship's on the
+    persistent route, DeepSpeech1's BiLSTM-2048 (T=1671) on the wide one,
+    where two calls are also held bit-equal and the wide K2 without clusters
+    (``cluster1``) is timed beside the route's clusters of 2."""
     from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
 
     B = FLAGSHIP_BATCH
     shapes = {"enc_T501": (501, 1024), "enc_T251": (251, 1024),
-              "pred_T65": (65, 320)}
+              "pred_T65": (65, 320), "ds1_T1671": (DS1_FRAMES, DS1_WIDTH)}
     torch.manual_seed(1)  # the yardstick's weights and inputs
     for i, (label, (T, H)) in enumerate(shapes.items()):
         args = _k2_case(T, B, H, seed=20 + i, dev=dev)
+        route = k._route(dev, B, H)
+        if route != ("wide" if label.startswith("ds1") else "persistent"):
+            raise AssertionError(f"K2 {label} takes the {route} route")
         want = k.lstm_bwd_reference(*args, need_dh0=False)
-        errs, rel = k2_errors(k.lstm_bwd(*args, need_dh0=False), want, label)
+        got = k.lstm_bwd(*args, need_dh0=False)
+        errs, rel = k2_errors(got, want, label)
+        runs = [("kernel", _route_fns()[route][1]),
+                ("stepwise", k.lstm_bwd_stepwise)]
+        bit_equal = cluster1 = None
+        if route == "wide":
+            bit_equal = all(torch.equal(a, b) for a, b in zip(
+                got, k.lstm_bwd(*args, need_dh0=False)) if a is not None)
+            if not bit_equal:
+                raise AssertionError(f"K2 {label}: two calls differ")
+            cluster1 = k2_errors(k.lstm_bwd_wide(*args, need_dh0=False,
+                                                 cluster=1), want,
+                                 f"{label} wide, no cluster")
+            runs.append(("cluster1", functools.partial(k.lstm_bwd_wide,
+                                                       cluster=1)))
+        del got
         step_errs, step_rel = k2_errors(
             k.lstm_bwd_stepwise(*args, need_dh0=False), want,
             f"{label} per-step route")
         del want
         times = {}
-        for name, fn in (("kernel", k.lstm_bwd_persistent),
-                         ("stepwise", k.lstm_bwd_stepwise)):
+        for name, fn in runs:
             times[f"{name}_ms"] = cuda_ms(lambda: fn(*args, need_dh0=False),
                                           10)
             times[f"{name}_queued_ms"] = cuda_ms(
@@ -907,10 +970,12 @@ def phase_k2(dev):
                                                         need_dh0=False), 2)
         lib_ms = cuda_ms(cudnn_lstm_backward([(T, B, H)], dev), 10)
         bound_ms, bound_by = bound(*k2_work(T, B, H))
-        emit("k2", shape=label, T=T, B=B, H=H, route=k._route(dev, B, H),
+        emit("k2", shape=label, T=T, B=B, H=H, route=route,
              max_abs_err=errs, err_over_magnitude=rel,
              stepwise_max_abs_err=step_errs,
              stepwise_err_over_magnitude=step_rel, tolerance=K2_TOL,
+             two_calls_bit_equal=bit_equal,
+             cluster1_err_over_magnitude=cluster1 and cluster1[1],
              **times, plain_ms=plain_ms, library_ms=lib_ms,
              library="cuDNN nn.LSTM(H, H) bf16 backward (also dW, dx)",
              bound_ms=bound_ms, bound_by=bound_by)
@@ -1668,6 +1733,7 @@ def phase_main_path_k1(dev, flagship):
         "name": "K1 lstm_fwd", "route": "cuda",
         "source": "myrtlespeech_tpu_torch/csrc/lstm_fwd_persistent.cu",
         "stepwise_source": "myrtlespeech_tpu_torch/csrc/lstm_fwd.cu",
+        "wide_source": "myrtlespeech_tpu_torch/csrc/lstm_fwd_wide.cu",
         "replaces": "myrtlespeech_tpu/ops/pallas/lstm_kernel.py:38 "
                     "(_lstm_kernel, pallas_call in _lstm_pallas_fwd_call :92)",
         "launches": flagship["launches"], "max_abs_err": serve["max_abs_err"],
@@ -1744,10 +1810,17 @@ def named(spans, name: str):
     return [sp for sp in spans if name in sp[0]]
 
 
-# The same for a path on which K1 and K2 take the per-step route alone
-# (DeepSpeech1's BiLSTM-2048): each of their launches is a per-step kernel's.
-STEPWISE_TRACE_NAMES = dict(TRACE_NAMES, k1=TRACE_NAMES["k1_step"],
-                            k2=TRACE_NAMES["k2_step"])
+# The same for a path on which K1 and K2 take the wide route
+# (DeepSpeech1's BiLSTM-2048): each of their launches is a wide kernel's.
+WIDE_TRACE_NAMES = dict(TRACE_NAMES, k1="lstm_fwd_wide_kernel",
+                        k2="lstm_bwd_wide_kernel")
+
+
+def wide_counts():
+    """The wide route's own launch counters, K1's and K2's."""
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+
+    return {"k1": k.lstm_fwd_wide.launches, "k2": k.lstm_bwd_wide.launches}
 
 
 def trace_step(fn, want, names=TRACE_NAMES):
@@ -1941,15 +2014,24 @@ def phase_train(dev):
 
 
 def lstm_replays(k1_calls, k2_calls, label: str, dev,
-                 plain_per_shape: bool = False, bidirectional: bool = False):
+                 plain_per_shape: bool = False, bidirectional: bool = False,
+                 twice: bool = False):
     """K1 and K2 on a main path's recorded calls.  Each call checked (all,
     or with ``plain_per_shape`` the first of each shape) goes through both
-    routes and the plain version: the largest errors, raising beyond
-    K1_TOL / K2_TOL; the plain version's traced device time over the same
+    routes (the path's own, persistent or wide, and the per-step one) and
+    the plain version: the largest errors, raising beyond K1_TOL / K2_TOL;
+    with ``twice``, the path's route a second time, raising unless the two
+    are bit-equal; the plain version's traced device time over the same
     calls; cuDNN's at the shapes of every call (``cudnn_replay``); the
     bound over every call.  Returns ``{"k1": ..., "k2": ...}``, each with
     ``max_abs_err`` the largest error of either route."""
     from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+
+    def same_twice(fn, args, got):
+        if twice and not all(torch.equal(a, b) for a, b in zip(got, fn(*args))
+                             if a is not None):
+            raise AssertionError(f"{label}: two calls of {fn.__name__} on "
+                                 "the same inputs differ")
 
     checked = {"k1": k1_calls, "k2": k2_calls}
     if plain_per_shape:
@@ -1962,7 +2044,10 @@ def lstm_replays(k1_calls, k2_calls, label: str, dev,
         errs, step_errs = {}, {}
         for args in checked["k1"]:
             want = k.lstm_fwd_reference(*args)
-            max_into(errs, k1_errors(k.lstm_fwd(*args), want, label))
+            got = k.lstm_fwd(*args)
+            max_into(errs, k1_errors(got, want, label))
+            same_twice(k.lstm_fwd, args, got)
+            del got
             max_into(step_errs, k1_errors(k.lstm_fwd_stepwise(*args), want,
                                           label))
             del want
@@ -1972,7 +2057,10 @@ def lstm_replays(k1_calls, k2_calls, label: str, dev,
         errs, rels, step_errs, step_rels = {}, {}, {}, {}
         for args in checked["k2"]:
             want = k.lstm_bwd_reference(*args)
-            e, r = k2_errors(k.lstm_bwd(*args), want, label)
+            got = k.lstm_bwd(*args)
+            e, r = k2_errors(got, want, label)
+            same_twice(k.lstm_bwd, args, got)
+            del got
             max_into(errs, e)
             max_into(rels, r)
             e, r = k2_errors(k.lstm_bwd_stepwise(*args), want,
@@ -2004,8 +2092,9 @@ def lstm_replays(k1_calls, k2_calls, label: str, dev,
                                                      bidirectional)
         o["bound_ms"], o["bound_by"] = bound(
             sum(w[0] for w in works[kind]), sum(w[1] for w in works[kind]))
-        o["persistent_max_abs_err"] = o.pop("max_abs_err")
-        o["max_abs_err"] = max(list(o["persistent_max_abs_err"].values())
+        o["two_calls_bit_equal"] = True if twice else None
+        o["route_max_abs_err"] = o.pop("max_abs_err")
+        o["max_abs_err"] = max(list(o["route_max_abs_err"].values())
                                + list(o["stepwise_max_abs_err"].values()))
     return out
 
@@ -2060,6 +2149,7 @@ def phase_train_main_path(dev, trained):
         {"name": "K2 lstm_bwd", "route": "cuda",
          "source": "myrtlespeech_tpu_torch/csrc/lstm_bwd_persistent.cu",
          "stepwise_source": "myrtlespeech_tpu_torch/csrc/lstm_bwd.cu",
+         "wide_source": "myrtlespeech_tpu_torch/csrc/lstm_bwd_wide.cu",
          "replaces": "myrtlespeech_tpu/ops/pallas/lstm_kernel.py:156 "
                      "(_bwd_kernel, pallas_call in _bwd_pallas_call :221)",
          "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
@@ -3063,26 +3153,30 @@ def phase_ds2_serve(dev):
     return figures
 
 
-def _ds1_lstm_path(launches: int, ms: float, replays: dict) -> dict:
+def _ds1_lstm_path(launches: int, ms: float, stepwise_ms: float,
+                   replays: dict) -> dict:
     """DeepSpeech1's K1 or K2 figures for the kernels line: its launches
-    and traced device ms on the path (the per-step route alone, so the
-    per-step figures are the same), two calls a step (one a direction),
-    and the replays' errors, plain, cuDNN and bound figures."""
-    return dict(path_figures(launches, ms, DS1_LSTM_STEPS, ms, replays),
-                route="stepwise", calls=2)
+    and traced device ms on the path (the wide route), the per-step route's
+    device ms on the same path (``stepwise_trace``), two calls a step (one
+    a direction), and the replays' errors, plain, cuDNN and bound
+    figures."""
+    return dict(path_figures(launches, ms, DS1_LSTM_STEPS, stepwise_ms,
+                             replays), route="wide", calls=2)
 
 
 def phase_train_ds1(dev):
     """deep_speech_1_en at full width (3 FC-2048, BiLSTM-2048, FC-2048;
     MFCC, 9 context frames a side) trains on B=32 x 16.7 s with 214 labels
-    through ``make_train_step``: K1 and K2 on the per-step route alone,
-    3,342 launches each a step (2 calls of T=1671), K7 and K8 once, no
-    plain version; 4 dropout masks of (32, 1671, 2048) a step (tallied on
-    the warm-up step, the kept share within KEPT_SIGMAS of 0.9); finite
-    loss, every parameter moved after the first timed step; step time,
-    split, peak memory; one traced step (device ms by kernel, idle share);
-    every K1 and K2 call of one step against the plain versions (both
-    directions), their plain and cuDNN times, K7 and K8 against theirs and
+    through ``make_train_step``: K1 and K2 on the wide route, 2 launches
+    each a step (one a direction, T=1671), none on the per-step route, K7
+    and K8 once, no plain version; 4 dropout masks of (32, 1671, 2048) a
+    step (tallied on the warm-up step, the kept share within KEPT_SIGMAS of
+    0.9); finite loss, every parameter moved after the first timed step;
+    step time, split, peak memory; one traced step (device ms by kernel,
+    idle share) and one with K1 and K2 on the per-step route
+    (``stepwise_trace``); every K1 and K2 call of one step against the
+    plain versions (both directions, both routes, the wide one twice and
+    bit-equal), their plain and cuDNN times, K7 and K8 against theirs and
     F.ctc_loss (``ctc_step_replays``); the step's loss and gradient norm
     against the plain versions forced on the card (same masks); a finite
     eval loss.  Returns K1's and K2's DS1 figures and K7's and K8's."""
@@ -3109,6 +3203,7 @@ def phase_train_ds1(dev):
 
     torch.cuda.reset_peak_memory_stats(dev)
     times, losses, gnorms = [], [], []
+    wide0 = wide_counts()
     with _plain_guard() as guard:
         _zero_counts()
         for i in range(DS1_STEPS):
@@ -3128,9 +3223,11 @@ def phase_train_ds1(dev):
         raise AssertionError(f"plain versions ran on the DS1 train path: "
                              f"{dict(guard.calls)}")
     want = {k: n * DS1_STEPS for k, n in DS1_LAUNCHES.items()}
-    if launches != want:
+    wide = {k: n - wide0[k] for k, n in wide_counts().items()}
+    if launches != want or wide != {k: want[k] for k in wide}:
         raise AssertionError(f"launches over {DS1_STEPS} DS1 steps: "
-                             f"{launches}, expected {want}")
+                             f"{launches}, the wide route's {wide}, "
+                             f"expected {want}, all wide")
     if not all(np.isfinite(x) for x in losses + gnorms):
         raise AssertionError(f"DS1 step loss {losses} or grad_norm {gnorms} "
                              "not finite")
@@ -3165,12 +3262,15 @@ def phase_train_ds1(dev):
     del loss
 
     traced_wall_ms, spans, kernel_spans, retries = trace_step(
-        lambda: step(state, batch), DS1_LAUNCHES, STEPWISE_TRACE_NAMES)
+        lambda: step(state, batch), DS1_LAUNCHES, WIDE_TRACE_NAMES)
     by_kernel = collections.Counter()
     for name, s0, e0 in spans:
         by_kernel[name[:80]] += (e0 - s0) / 1e3
     busy = busy_ms(spans)
     kernel_ms = {k: span_ms(sp) for k, sp in kernel_spans.items()}
+    # The same step with K1 and K2 on the per-step route: its device ms.
+    stepwise = stepwise_trace(lambda: step(state, batch),
+                              with_stepwise(DS1_LAUNCHES, DS1_LSTM_STEPS))
 
     # Every K1 and K2 call of one step (both directions), K7's and K8's
     # one call each and the CTC loss's inputs, replayed.
@@ -3185,7 +3285,7 @@ def phase_train_ds1(dev):
     if made != {"k1": 2, "k2": 2, "k7": 1, "k8": 1, "loss": 1}:
         raise AssertionError(f"the recorded DS1 step made {made} calls")
     lstm = lstm_replays(calls.pop("k1"), calls.pop("k2"), "DS1 step", dev,
-                        bidirectional=True)
+                        bidirectional=True, twice=True)
     ctc = ctc_step_replays(calls, "DS1 step")
     del calls
 
@@ -3221,7 +3321,8 @@ def phase_train_ds1(dev):
     torch.cuda.empty_cache()
 
     ms = 1e3 * statistics.median(times)
-    k1_ds1, k2_ds1 = (_ds1_lstm_path(DS1_LAUNCHES[k], kernel_ms[k], lstm[k])
+    k1_ds1, k2_ds1 = (_ds1_lstm_path(DS1_LAUNCHES[k], kernel_ms[k],
+                                     stepwise[k], lstm[k])
                       for k in ("k1", "k2"))
     errs = ctc["errors"]
     emit("ds1_train", config="deep_speech_1_en", batch=B, seconds=secs,
@@ -3239,7 +3340,7 @@ def phase_train_ds1(dev):
          traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
          device_idle_share=1.0 - busy / traced_wall_ms,
          device_events=len(spans), trace_retries=retries,
-         kernel_device_ms=kernel_ms,
+         kernel_device_ms=kernel_ms, stepwise_device_ms=stepwise,
          device_ms_by_kernel=dict(by_kernel.most_common(12)),
          k1=lstm["k1"], k2=lstm["k2"], k1_ds1=k1_ds1, k2_ds1=k2_ds1,
          k1_tolerance=K1_TOL, k2_tolerance=K2_TOL, k78=ctc,
@@ -3260,12 +3361,13 @@ def phase_train_ds1(dev):
 def phase_ds1_serve(dev):
     """deep_speech_1_en at full width with seeded weights transcribes B=32
     x 16.7 s of seeded noise through ``build_transcriber`` and its greedy
-    decoder: one warm-up and three timed runs, K1 on the per-step route
-    alone (3,342 launches a batch) and nothing else, no plain version; a
-    stage split; one traced run (K1's device ms, the idle share); the
-    logits against the plain versions forced on the card (within
-    DS1_LOGITS_TOL of their largest magnitude), and both decoded greedily;
-    K1's two calls against the plain version, the plain version's and
+    decoder: one warm-up and three timed runs, K1 on the wide route (2
+    launches a batch, one a direction) and nothing else, no plain version;
+    a stage split; one traced run (K1's device ms, the idle share) and one
+    with K1 on the per-step route (``stepwise_trace``); the logits against
+    the plain versions forced on the card (within DS1_LOGITS_TOL of their
+    largest magnitude), and both decoded greedily; K1's two calls against
+    the plain version (and twice, bit-equal), the plain version's and
     cuDNN's device times.  Returns the ``ds1_serve`` path of K1's entry."""
     from myrtlespeech_tpu_torch.builders.build import random_params
     from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
@@ -3280,6 +3382,7 @@ def phase_ds1_serve(dev):
     wav, lens = random_audio(B, secs, seed=0)
     tr.transcribe(wav, lens)  # warm-up
     times = []
+    wide0 = wide_counts()
     with _plain_guard() as guard:
         _zero_counts()
         for _ in range(3):
@@ -3288,15 +3391,18 @@ def phase_ds1_serve(dev):
             out = tr.transcribe(wav, lens)  # ends in a copy to the host
             times.append(time.perf_counter() - t0)
         launches = _read_counts()
+        wide = {k: n - wide0[k] for k, n in wide_counts().items()}
         stages = stage_ms(tr, wav, lens, model_key="model_ms")
         traced_wall_ms, spans, kernel_spans, retries = trace_step(
             lambda: tr.transcribe(wav, lens), DS1_SERVE_LAUNCHES,
-            STEPWISE_TRACE_NAMES)
+            WIDE_TRACE_NAMES)
     if guard.calls:
         raise AssertionError(f"plain versions ran on the DS1 serve path: "
                              f"{dict(guard.calls)}")
-    if launches != {n: 3 * c for n, c in DS1_SERVE_LAUNCHES.items()}:
-        raise AssertionError(f"launches over 3 DS1 batches: {launches}")
+    if launches != {n: 3 * c for n, c in DS1_SERVE_LAUNCHES.items()} \
+            or wide != {"k1": launches["k1"], "k2": 0}:
+        raise AssertionError(f"launches over 3 DS1 batches: {launches}, "
+                             f"the wide route's {wide}")
     by_kernel = collections.Counter()
     for name, s0, e0 in spans:
         by_kernel[name[:80]] += (e0 - s0) / 1e3
@@ -3332,9 +3438,14 @@ def phase_ds1_serve(dev):
     errs = {}
     with torch.inference_mode():
         for args in calls:
-            max_into(errs, k1_errors(k.lstm_fwd(*args),
-                                     k.lstm_fwd_reference(*args),
+            got = k.lstm_fwd(*args)
+            max_into(errs, k1_errors(got, k.lstm_fwd_reference(*args),
                                      "DS1 serve"))
+            if not all(torch.equal(a, b)
+                       for a, b in zip(got, k.lstm_fwd(*args))):
+                raise AssertionError("DS1 serve: two K1 calls on the same "
+                                     "inputs differ")
+            del got
 
         def plain_replay():
             with torch.inference_mode():
@@ -3349,9 +3460,12 @@ def phase_ds1_serve(dev):
     bound_ms, bound_by = bound(sum(w[0] for w in works),
                                sum(w[1] for w in works))
     del calls
+    stepwise_ms = stepwise_trace(
+        lambda: tr.transcribe(wav, lens),
+        with_stepwise(DS1_SERVE_LAUNCHES, DS1_LSTM_STEPS))["k1"]
     k1_ms = span_ms(kernel_spans["k1"])
     figures = _ds1_lstm_path(
-        DS1_SERVE_LAUNCHES["k1"], k1_ms,
+        DS1_SERVE_LAUNCHES["k1"], k1_ms, stepwise_ms,
         {"library_ms": library_ms, "library": library,
          "plain_ms": span_ms(plain_spans), "plain_calls": len(works),
          "bound_ms": bound_ms})
@@ -4634,9 +4748,9 @@ def phase_ft_hard_rnnt(dev, workdir: str):
 def phase_fit_ds1(dev, workdir: str):
     """deep_speech_1_en at full width trains one epoch on the synthetic
     corpus through the CLI in a subprocess: FIT_BATCHES train batches of
-    32, then the eval split decoded greedily; K1 and K2 on the per-step
-    route, 2 x T launches each a step (T a batch's frames), K7 and K8 once,
-    no plain version; 4 dropout masks of (32, T, 2048) a step, the kept
+    32, then the eval split decoded greedily; K1 and K2 on the wide route,
+    2 launches each a step (one a direction), K7 and K8 once, no plain
+    version; 4 dropout masks of (32, T, 2048) a step, the kept
     share within KEPT_SIGMAS of 0.9; finite losses and WER.  Then, in
     process, one step from the config's seeded weights on the longest of
     those batches, its K1/K2/K7/K8 calls held against the plain versions
@@ -4663,10 +4777,9 @@ def phase_fit_ds1(dev, workdir: str):
                       for b in _epoch0_batches(task, n, split)]
               for split, n in (("train", FIT_BATCHES), ("eval", 2))}
     zero = {k: 0 for k in ("k3", "k4", "k5", "k6")}
-    want_train = dict(zero, k1=2 * sum(frames["train"]),
-                      k2=2 * sum(frames["train"]), k7=FIT_BATCHES,
-                      k8=FIT_BATCHES)
-    want_eval = dict(zero, k1=2 * sum(frames["eval"]), k2=0, k7=2, k8=0)
+    want_train = dict(zero, k1=2 * FIT_BATCHES, k2=2 * FIT_BATCHES,
+                      k7=FIT_BATCHES, k8=FIT_BATCHES)
+    want_eval = dict(zero, k1=2 * 2, k2=0, k7=2, k8=0)
     drops = last["dropout"]
     shares = kept_share(drops, 1.0 - cfg.speech_to_text.model.drop_prob)
     state = train.init_state(task, seed=cfg.train_config.seed,

@@ -1,9 +1,10 @@
 // K2, per-step route: the backward LSTM recurrence (BPTT), one launch per
 // reverse step, written by hand for Hopper (sm_90a).
 //
-// Most main paths run the persistent K2 (lstm_bwd_persistent.cu); this
-// route takes the shapes the persistent kernel cannot hold, DeepSpeech1's
-// BiLSTM-2048 among them (see lstm_fwd.cu's note).
+// The main paths run an on-chip K2, the persistent one
+// (lstm_bwd_persistent.cu) or, for DeepSpeech1's BiLSTM-2048, the wide one
+// (lstm_bwd_wide.cu); this route takes the shapes that neither holds (see
+// lstm_fwd.cu's note).
 //
 // Replaces myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_bwd_kernel (reached
 // through _bwd_pallas_call).  It walks time in reverse over the forward's

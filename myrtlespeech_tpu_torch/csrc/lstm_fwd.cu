@@ -1,12 +1,13 @@
 // K1, per-step route: the forward LSTM recurrence, one launch per time step,
 // written by hand for Hopper (sm_90a).
 //
-// Most main paths run the persistent K1 (lstm_fwd_persistent.cu), which
-// keeps W_hh in shared memory for the whole call; ops/cuda/lstm_kernel.py's
-// lstm_route sends here the shapes whose grid or shared memory the
-// persistent kernel cannot hold (H over some 1,050 on an H100, B over 128):
-// DeepSpeech1's BiLSTM-2048, in training and serving, and the RNN-T beam's
-// prediction net at B*W rows.
+// The main paths run an on-chip K1, which keeps W_hh on chip for the whole
+// call: the persistent one (lstm_fwd_persistent.cu) up to H=1,056 and
+// B=128 on an H100, the wide one (lstm_fwd_wide.cu) up to H=2,048 at
+// B <= 32, where DeepSpeech1's BiLSTM-2048 takes it in training and serving.
+// ops/cuda/lstm_kernel.py's lstm_route sends here the shapes that neither
+// holds: the RNN-T beam's prediction net at B*W = 256 or 512 rows in
+// serving, B over 128, and H over 2,048 (or over 1,056 at B over 32).
 //
 // Replaces myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_lstm_kernel (reached
 // through _lstm_pallas_fwd_call).  For every time step t and every row b:

@@ -4,8 +4,8 @@ wrappers, their plain versions, and the autograd Function that joins them.
 K1 replaces ``myrtlespeech_tpu/ops/pallas/lstm_kernel.py::_lstm_kernel`` (its
 ``pallas_call`` site is ``_lstm_pallas_fwd_call``), K2 replaces
 ``_bwd_kernel`` there (its ``pallas_call`` site is ``_bwd_pallas_call``).
-Each has two routes, CUDA C++ for ``sm_90a`` built by ``ops/cuda/build.py``
-and bound with ``ctypes``:
+Each has three routes, CUDA C++ for ``sm_90a`` built by
+``ops/cuda/build.py`` and bound with ``ctypes``:
 
 - **persistent** (``csrc/lstm_fwd_persistent.cu``,
   ``csrc/lstm_bwd_persistent.cu``): one cooperative launch per call.  A
@@ -13,14 +13,22 @@ and bound with ``ctypes``:
   ``W_hh`` in shared memory for the whole sequence (the TPU kernel's own
   design: ``w_hh`` resident in VMEM), its cells' state in registers; the
   blocks exchange h (K1) or dz (K2) in bf16 through device memory and meet
-  at one grid barrier a step.
+  at one grid barrier a step.  Every LSTM width of the configs but
+  DeepSpeech1's (H <= 1,056 on an H100) takes it.
+- **wide** (``csrc/lstm_fwd_wide.cu``, ``csrc/lstm_bwd_wide.cu``,
+  ``csrc/lstm_wide.cuh``): one launch per call for B <= 32 at H up to
+  2,048.  A block owns 16 units, so the grid is ceil(H / 16) blocks (128 at
+  H=2048); its ``W_hh`` slice (256 KB at H=2048) stays on chip, part as
+  ``mma.sync`` fragments in registers, the rest in shared memory; K2's
+  blocks go in clusters of :data:`WIDE_CLUSTER` that split the reduction
+  over 4H between them, so that each reads only its share of dz a step,
+  and meet through distributed shared memory.  DeepSpeech1's BiLSTM-2048
+  takes this route in training (B=32), evaluation and serving.
 - **stepwise** (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``): one launch a
   step (the launch boundary is the grid-wide barrier), each block re-reading
-  its ``W_hh`` slice from L2; for shapes whose grid or shared memory the
-  persistent kernels cannot hold (H over some 1,050 on an H100, B over
-  128).  DeepSpeech1's BiLSTM-2048 (256 blocks of 8 units, over an H100's
-  132 SMs) takes this route in training and serving, and the RNN-T beam's
-  prediction net at B*W rows in serving.
+  its ``W_hh`` slice from L2; for the shapes that no on-chip route holds:
+  the RNN-T beam's prediction net at B*W = 256 or 512 rows in serving, B
+  over 128, and H over 2,048 (or over 1,056 at B over 32).
 
 What bounds them on the card: each step is a (B x H) @ (H x 4H) product
 (K1: ``h @ W_hh``; K2: ``dz @ W_hh^T``) in a serial chain of T steps, and
@@ -35,8 +43,9 @@ memory.
 :func:`lstm_route` chooses the route from (B, H, SM count, shared memory a
 block can ask for), before any launch; :func:`lstm_fwd` and
 :func:`lstm_bwd` dispatch by it, and :func:`lstm_fwd_persistent`,
-:func:`lstm_fwd_stepwise` (and K2's two) take one route whatever the shape.
-A refused launch raises; no route falls back to the other.
+:func:`lstm_fwd_wide`, :func:`lstm_fwd_stepwise` (and K2's three) take one
+route whatever the shape.  A refused launch raises; no route falls back to
+another.
 
 :func:`lstm_fwd` and :func:`lstm_bwd` take CUDA tensors to the kernels and
 CPU tensors to :func:`lstm_fwd_reference` and :func:`lstm_bwd_reference`,
@@ -141,7 +150,9 @@ def _library(name: str) -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         n_ptr, n_int = {"lstm_fwd": (12, 4), "lstm_bwd": (10, 4),
                         "lstm_fwd_persistent": (13, 3),
-                        "lstm_bwd_persistent": (13, 4)}[name]
+                        "lstm_bwd_persistent": (13, 4),
+                        "lstm_fwd_wide": (13, 3),
+                        "lstm_bwd_wide": (13, 5)}[name]
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
@@ -149,9 +160,10 @@ def _library(name: str) -> ctypes.CDLL:
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        if name.endswith("_persistent"):
+        if name.endswith(("_persistent", "_wide")):
             smem = getattr(lib, f"{name}_smem_bytes")
-            smem.argtypes = [ctypes.c_int]
+            smem.argtypes = [ctypes.c_int] * (2 if name == "lstm_bwd_wide"
+                                              else 1)
             smem.restype = ctypes.c_ulonglong
         lib._argtypes_set = True
     return lib
@@ -187,21 +199,66 @@ def persistent_smem_bytes(H: int) -> Tuple[int, int]:
     return fwd, bwd
 
 
+# The wide persistent kernels (csrc/lstm_{fwd,bwd}_wide.cu): a block owns
+# WIDE_UNITS hidden units for at most WIDE_MAX_BATCH rows (two m16 tiles).
+# Each warp keeps its first k-pairs (32 k) of W_hh in registers, K1 2 and
+# K2 8 / cluster (64 registers a thread either way), the rest of the
+# block's slice in shared memory; the eight warps' partial sums take 32 KB
+# (K1: one m16 tile of 64 columns at a time; K2 in clusters of C: two tiles
+# of the cluster's 16C units, 16C KB).  The route takes C = WIDE_CLUSTER.
+WIDE_UNITS = 16
+WIDE_MAX_BATCH = 32
+WIDE_CLUSTER = 2
+_WARPS = 8
+
+
+def _shared_pairs(pairs: int, reg_pairs: int) -> int:
+    """``shared_pairs`` of ``csrc/lstm_wide.cuh``: the k-pairs of a block's
+    range of ``pairs`` that lie in shared memory."""
+    return max(0, pairs - _WARPS * reg_pairs)
+
+
+def wide_smem_bytes(H: int, cluster: int = WIDE_CLUSTER) -> Tuple[int, int]:
+    """Dynamic shared memory of one block of the wide K1 and K2 at hidden
+    width H (K2 in clusters of ``cluster``): the k-pairs of the W_hh slice
+    that the registers do not hold (K1: 64 columns x 32 k, K2: 16C columns
+    x 32 k, bf16, a pair) and the warps' partial sums.  The same sums as
+    ``fwd_wide_smem_bytes``/``bwd_wide_smem_bytes`` in the sources."""
+    fwd = _shared_pairs(_round_up(H, 32) // 32, 2) * 64 * 32 * 2 \
+        + _WARPS * 1024 * 4
+    pairs = -(-(_round_up(4 * H, 32) // 32) // cluster)
+    bwd = _shared_pairs(pairs, 8 // cluster) * 16 * cluster * 32 * 2 \
+        + _WARPS * 32 * (2 * 2 * cluster * 4) * 4
+    return fwd, bwd
+
+
+def wide_blocks(H: int, cluster: int = WIDE_CLUSTER) -> Tuple[int, int]:
+    """Grid blocks of the wide K1 (ceil(H / 16)) and K2 (ceil(H / 16C)
+    clusters of C)."""
+    return (-(-H // WIDE_UNITS),
+            -(-H // (WIDE_UNITS * cluster)) * cluster)
+
+
 def lstm_route(B: int, H: int, sm_count: int, smem_per_block: int) -> str:
-    """``"persistent"`` or ``"stepwise"``: which K1/K2 kernels a call of
-    batch B and hidden width H takes on a card with ``sm_count`` SMs and
-    ``smem_per_block`` bytes of shared memory a block can ask for.
+    """``"persistent"``, ``"wide"`` or ``"stepwise"``: which K1/K2 kernels
+    a call of batch B and hidden width H takes on a card with ``sm_count``
+    SMs and ``smem_per_block`` bytes of shared memory a block can ask for.
 
     The persistent kernels take B <= 128, a grid of ceil(H / 8) blocks that
-    fits one block an SM, and their shared memory; every other shape goes to
-    the per-step kernels (one launch a step).  K1 and K2 take the same route
-    for a shape.  Decided from the shape alone, before any launch: a
-    persistent launch that the card then refuses raises, it never runs the
-    other route."""
-    fits = max(persistent_smem_bytes(H)) <= smem_per_block
+    fits one block an SM, and their shared memory.  Of the other shapes,
+    the wide kernels take B <= 32, grids of ceil(H / 16) blocks (K2:
+    ceil(H / 32) clusters of 2) that fit one block an SM, and their shared
+    memory: H up to 2,048 on an H100.  Every other shape goes to the
+    per-step kernels (one launch a step).  K1 and K2 take the same route
+    for a shape.  Decided from the shape alone, before any launch: a launch
+    that the card then refuses (say, clusters that its GPCs cannot place all
+    at once) raises, it never runs another route."""
     if B <= PERSISTENT_MAX_BATCH and -(-H // UNITS_PER_BLOCK) <= sm_count \
-            and fits:
+            and max(persistent_smem_bytes(H)) <= smem_per_block:
         return "persistent"
+    if B <= WIDE_MAX_BATCH and max(wide_blocks(H)) <= sm_count \
+            and max(wide_smem_bytes(H)) <= smem_per_block:
+        return "wide"
     return "stepwise"
 
 
@@ -303,12 +360,12 @@ def _fwd_stepwise(dev, T, B, H, x_proj, valid, w_hh, h0, c0, b) -> Outputs:
     return out
 
 
-def _persistent_scratch(dev, H: int, rows: int, cols: int):
-    """One zeroed allocation for a persistent call: the grid barrier's flags
-    (one 128-byte line for each of the ceil(H / 8) blocks) and after them
-    the bf16 exchange buffer (2, rows, cols).  Returns the tensor (to keep
-    alive) and the two addresses."""
-    n_flags = -(-H // UNITS_PER_BLOCK) * 32
+def _persistent_scratch(dev, blocks: int, rows: int, cols: int):
+    """One zeroed allocation for a persistent or wide call: the grid
+    barrier's flags (one 128-byte line for each of the grid's ``blocks``)
+    and after them the bf16 exchange buffer (2, rows, cols).  Returns the
+    tensor (to keep alive) and the two addresses."""
+    n_flags = blocks * 32
     buf = torch.zeros((n_flags + rows * cols,), dtype=torch.int32,
                       device=dev)
     return buf, buf.data_ptr(), buf.data_ptr() + 4 * n_flags
@@ -329,14 +386,31 @@ def _fwd_persistent(dev, T, B, H, x_proj, valid, w_hh, h0, c0,
     out = _fwd_outputs(dev, T, B, H)
     # Freed on return, as any scratch: the allocator reuses it only for
     # work queued after the kernel on this stream.
-    buf, flags, hbuf = _persistent_scratch(dev, H, 16 * _tiles(B),
-                                           _round_up(H, 32))
+    buf, flags, hbuf = _persistent_scratch(dev, -(-H // UNITS_PER_BLOCK),
+                                           16 * _tiles(B), _round_up(H, 32))
     _launch(_library("lstm_fwd_persistent"), "lstm_fwd_persistent", dev,
             f"T={T} B={B} H={H}", x_proj.data_ptr(), valid.data_ptr(),
             w_t.data_ptr(), None if b is None else b.data_ptr(),
             h0.data_ptr(), c0.data_ptr(), *(o.data_ptr() for o in out),
             hbuf, flags, T, B, H)
     lstm_fwd_persistent.launches += 1
+    return out
+
+
+def _fwd_wide(dev, T, B, H, x_proj, valid, w_hh, h0, c0, b) -> Outputs:
+    """The wide K1 (``csrc/lstm_fwd_wide.cu``): one launch."""
+    if B > WIDE_MAX_BATCH:
+        raise ValueError(f"lstm_fwd_wide: B={B} is over {WIDE_MAX_BATCH}")
+    w_t = kernel_layout(w_hh)
+    out = _fwd_outputs(dev, T, B, H)
+    buf, flags, hbuf = _persistent_scratch(dev, wide_blocks(H)[0],
+                                           16 * _tiles(B), _round_up(H, 32))
+    _launch(_library("lstm_fwd_wide"), "lstm_fwd_wide", dev,
+            f"T={T} B={B} H={H}", x_proj.data_ptr(), valid.data_ptr(),
+            w_t.data_ptr(), None if b is None else b.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), *(o.data_ptr() for o in out),
+            hbuf, flags, T, B, H)
+    lstm_fwd_wide.launches += 1
     return out
 
 
@@ -349,10 +423,13 @@ def _fwd(fn: str, route: Optional[str], x_proj, valid, w_hh, h0, c0, b):
     if dev is None:
         return lstm_fwd_reference(x_proj, valid, w_hh, h0, c0, b), 0
     T, B, H = _fwd_shapes(fn, x_proj, valid, w_hh, h0, c0, b)
-    if (route or _route(dev, B, H)) == "persistent":
-        return _fwd_persistent(dev, T, B, H, x_proj, valid, w_hh, h0, c0,
-                               b), 1
-    return _fwd_stepwise(dev, T, B, H, x_proj, valid, w_hh, h0, c0, b), T
+    args = (dev, T, B, H, x_proj, valid, w_hh, h0, c0, b)
+    route = route or _route(dev, B, H)
+    if route == "persistent":
+        return _fwd_persistent(*args), 1
+    if route == "wide":
+        return _fwd_wide(*args), 1
+    return _fwd_stepwise(*args), T
 
 
 def lstm_fwd(x_proj: torch.Tensor, valid: torch.Tensor, w_hh: torch.Tensor,
@@ -362,10 +439,10 @@ def lstm_fwd(x_proj: torch.Tensor, valid: torch.Tensor, w_hh: torch.Tensor,
 
     Same arguments and results as :func:`lstm_fwd_reference`.  On the card
     ``x_proj`` must be bf16 and ``valid``, ``h0``, ``c0`` and ``b`` fp32, all
-    contiguous and on one device; :func:`lstm_route` picks the persistent
-    kernel or the per-step one from the shape.  ``lstm_fwd.launches`` grows
-    by one for each grid launch: one per call on the persistent route, T on
-    the per-step route.
+    contiguous and on one device; :func:`lstm_route` picks the persistent,
+    the wide or the per-step kernel from the shape.  ``lstm_fwd.launches``
+    grows by one for each grid launch: one per call on the persistent and
+    wide routes, T on the per-step route.
     """
     out, n = _fwd("lstm_fwd", None, x_proj, valid, w_hh, h0, c0, b)
     lstm_fwd.launches += n
@@ -383,6 +460,16 @@ def lstm_fwd_persistent(x_proj: torch.Tensor, valid: torch.Tensor,
                 h0, c0, b)[0]
 
 
+def lstm_fwd_wide(x_proj: torch.Tensor, valid: torch.Tensor,
+                  w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                  b: Optional[torch.Tensor] = None) -> Outputs:
+    """K1 through the wide kernel whatever the shape (B over 32, H over
+    2,048 or a grid the card cannot hold raises); ``lstm_fwd_wide.launches``
+    counts its launches (one a call) from every caller, :func:`lstm_fwd`
+    included."""
+    return _fwd("lstm_fwd_wide", "wide", x_proj, valid, w_hh, h0, c0, b)[0]
+
+
 def lstm_fwd_stepwise(x_proj: torch.Tensor, valid: torch.Tensor,
                       w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
                       b: Optional[torch.Tensor] = None) -> Outputs:
@@ -395,6 +482,7 @@ def lstm_fwd_stepwise(x_proj: torch.Tensor, valid: torch.Tensor,
 
 lstm_fwd.launches = 0
 lstm_fwd_persistent.launches = 0
+lstm_fwd_wide.launches = 0
 lstm_fwd_stepwise.launches = 0
 
 
@@ -500,7 +588,8 @@ def _bwd_persistent(dev, T, B, H, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
     dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    buf, flags, dzb = _persistent_scratch(dev, H, 16 * _tiles(B),
+    buf, flags, dzb = _persistent_scratch(dev, -(-H // UNITS_PER_BLOCK),
+                                          16 * _tiles(B),
                                           _round_up(4 * H, 32))
     _launch(_library("lstm_bwd_persistent"), "lstm_bwd_persistent", dev,
             f"T={T} B={B} H={H}", valid.data_ptr(), w.data_ptr(),
@@ -512,8 +601,33 @@ def _bwd_persistent(dev, T, B, H, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
     return dz, (dh0 if need_dh0 else None), dc0
 
 
+def _bwd_wide(dev, T, B, H, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
+              need_dh0, cluster: int = WIDE_CLUSTER) -> BwdOutputs:
+    """The wide K2 (``csrc/lstm_bwd_wide.cu``) in clusters of ``cluster``
+    blocks (1 or 2): one launch, dh0 included."""
+    if B > WIDE_MAX_BATCH:
+        raise ValueError(f"lstm_bwd_wide: B={B} is over {WIDE_MAX_BATCH}")
+    if cluster not in (1, 2):
+        raise ValueError(f"lstm_bwd_wide: cluster={cluster}, not 1 or 2")
+    w = kernel_layout(w_hh, transpose=False)
+    dz = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    buf, flags, dzb = _persistent_scratch(dev, wide_blocks(H, cluster)[1],
+                                          16 * _tiles(B),
+                                          _round_up(4 * H, 32))
+    _launch(_library("lstm_bwd_wide"), "lstm_bwd_wide", dev,
+            f"T={T} B={B} H={H} cluster={cluster}", valid.data_ptr(),
+            w.data_ptr(), c0.data_ptr(), cs.data_ptr(), ifgo.data_ptr(),
+            dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), dz.data_ptr(),
+            dh0.data_ptr(), dc0.data_ptr(), dzb, flags, T, B, H,
+            int(need_dh0), cluster)
+    lstm_bwd_wide.launches += 1
+    return dz, (dh0 if need_dh0 else None), dc0
+
+
 def _bwd(fn: str, route: Optional[str], valid, w_hh, c0, cs, ifgo, dys, dhT,
-         dcT, need_dh0):
+         dcT, need_dh0, cluster: int = WIDE_CLUSTER):
     """K2 by ``route`` (None: :func:`lstm_route`'s choice) on CUDA tensors,
     its plain version on CPU tensors; returns the outputs and the grid
     launches made."""
@@ -522,8 +636,11 @@ def _bwd(fn: str, route: Optional[str], valid, w_hh, c0, cs, ifgo, dys, dhT,
     if dev is None:
         return lstm_bwd_reference(*args, need_dh0), 0
     T, B, H = _bwd_shapes(fn, *args)
-    if (route or _route(dev, B, H)) == "persistent":
+    route = route or _route(dev, B, H)
+    if route == "persistent":
         return _bwd_persistent(dev, T, B, H, *args, need_dh0), 1
+    if route == "wide":
+        return _bwd_wide(dev, T, B, H, *args, need_dh0, cluster), 1
     return _bwd_stepwise(dev, T, B, H, *args, need_dh0), T + int(need_dh0)
 
 
@@ -536,9 +653,9 @@ def lstm_bwd(valid: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
     Same arguments and results as :func:`lstm_bwd_reference`.  On the card
     ``ifgo`` and ``dys`` must be bf16 and ``valid``, ``c0``, ``cs``, ``dhT``
     and ``dcT`` fp32, all contiguous and on one device; :func:`lstm_route`
-    picks the persistent kernel or the per-step one from the shape.
+    picks the persistent, the wide or the per-step kernel from the shape.
     ``lstm_bwd.launches`` grows by one for each grid launch: one per call
-    on the persistent route (dh0 included); T, and one more with
+    on the persistent and wide routes (dh0 included); T, and one more with
     ``need_dh0``, on the per-step route.
     """
     out, n = _bwd("lstm_bwd", None, valid, w_hh, c0, cs, ifgo, dys, dhT, dcT,
@@ -559,6 +676,20 @@ def lstm_bwd_persistent(valid: torch.Tensor, w_hh: torch.Tensor,
                 ifgo, dys, dhT, dcT, need_dh0)[0]
 
 
+def lstm_bwd_wide(valid: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor,
+                  cs: torch.Tensor, ifgo: torch.Tensor, dys: torch.Tensor,
+                  dhT: torch.Tensor, dcT: torch.Tensor,
+                  need_dh0: bool = True,
+                  cluster: int = WIDE_CLUSTER) -> BwdOutputs:
+    """K2 through the wide kernel whatever the shape, in clusters of
+    ``cluster`` blocks (1 or 2; :func:`lstm_bwd` takes
+    :data:`WIDE_CLUSTER`); B over 32, H over 2,048 or a grid the card cannot
+    hold raises.  ``lstm_bwd_wide.launches`` counts its launches (one a
+    call) from every caller, :func:`lstm_bwd` included."""
+    return _bwd("lstm_bwd_wide", "wide", valid, w_hh, c0, cs, ifgo, dys,
+                dhT, dcT, need_dh0, cluster)[0]
+
+
 def lstm_bwd_stepwise(valid: torch.Tensor, w_hh: torch.Tensor,
                       c0: torch.Tensor, cs: torch.Tensor, ifgo: torch.Tensor,
                       dys: torch.Tensor, dhT: torch.Tensor, dcT: torch.Tensor,
@@ -572,6 +703,7 @@ def lstm_bwd_stepwise(valid: torch.Tensor, w_hh: torch.Tensor,
 
 lstm_bwd.launches = 0
 lstm_bwd_persistent.launches = 0
+lstm_bwd_wide.launches = 0
 lstm_bwd_stepwise.launches = 0
 
 

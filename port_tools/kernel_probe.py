@@ -1,8 +1,8 @@
-"""One of K3, K4, K5, K6, K7 or K8 alone on the card: what the compiler made
-of it and how long it takes.
+"""One of K3, K4, K5, K6, K7 or K8, or the wide K1 or K2, alone on the card:
+what the compiler made of it and how long it takes.
 
-    python port_tools/kernel_probe.py --kernel k3|k4|k5|k6|k7|k8
-        [--shapes 5s,long,...] [--ncu] [--phases] [--bare]
+    python port_tools/kernel_probe.py --kernel k3|k4|k5|k6|k7|k8|k1w|k2w
+        [--shapes 5s,long,...] [--cluster 1|2] [--ncu] [--phases] [--bare]
 
 Prints one JSON line for each of:
 
@@ -33,12 +33,25 @@ Prints one JSON line for each of:
   the DeepSpeech2 step's lattice (``ds2``: B=32, T'=836, S=429), ``U700``
   (S=1,401, two columns a thread), ``U4000`` and ``U6000`` (S=8,001 and
   12,001: eight and sixteen columns a thread), K8 fed K7's alphas and ll;
-- with ``--phases`` (K6, K7), ``phases``: a profiling build of
+  ``k1w`` and ``k2w`` are K1's and K2's wide route
+  (``csrc/lstm_{fwd,bwd}_wide.cu``) at DeepSpeech1's BiLSTM-2048 (``ds1``:
+  T=1671, B=32, H=2048; ``ds1_b1``: one row), K2 in clusters of
+  ``--cluster`` blocks (2, the route's, by default), fed K1's own outputs;
+- with ``--phases`` (K6, K7, k1w, k2w), ``phases``: a profiling build of
   ``csrc/joint_tail_bwd.cu`` (``-DK6_PHASE_CLOCKS``) or
   ``csrc/ctc_lattice.cu`` (``-DK7_PHASE_CLOCKS``) runs each shape once;
   thread 0's clocks in each phase of a (t-tile, u) unit or of a lattice
   step, summed over the blocks, over its clocks in the whole kernel (K7:
-  also each phase's clocks a step);
+  also each phase's clocks a step); for ``k1w`` and ``k2w``, three
+  profiling builds of ``csrc/lstm_{fwd,bwd}_wide.cu``
+  (``-DLSTM_WIDE_PHASES`` alone, with ``-DLSTM_WIDE_SKIP_MMA``: the exchange
+  loads without the products, and with ``-DLSTM_WIDE_SKIP_LOADS``: the
+  products without the loads; the last two give wrong results) each run
+  each shape once: thread 0's clocks a block and a step in each phase (the
+  grid barrier's wait, the products over the register-held and the
+  shared-memory k-pairs with their exchange loads, the warps' reduction,
+  the cluster's exchange, the cell epilogue with the next step's loads),
+  their shares of the kernel's clocks, and the build's device ms;
 - with ``--bare`` (K3, K5), ``bare``: the kernel's device time at each
   shape, in turns with a measuring build of its source that leaves a part
   out (its results are wrong): K3 without the alphas' stores
@@ -74,14 +87,20 @@ LATTICE_SHAPES = {"5s": (32, 251, 65), "15s": (32, 751, 193),
                   "long": (128, 836, 215)}
 CTC_SHAPES = {"ds2": (32, 836, 214, 29, 0), "U700": (4, 1500, 700, 29, 0),
               "U4000": (1, 8100, 4000, 29, 0), "U6000": (1, 8000, 6000, 29, 0)}
+LSTM_SHAPES = {"ds1": (1671, 32, 2048), "ds1_b1": (1671, 1, 2048)}
 SHAPES = {"k3": LATTICE_SHAPES, "k4": LATTICE_SHAPES, "k5": JOINT_SHAPES,
-          "k6": JOINT_SHAPES, "k7": CTC_SHAPES, "k8": CTC_SHAPES}
+          "k6": JOINT_SHAPES, "k7": CTC_SHAPES, "k8": CTC_SHAPES,
+          "k1w": LSTM_SHAPES, "k2w": LSTM_SHAPES}
 SOURCES = {"k3": ("rnnt_lattice",), "k4": ("rnnt_lattice",),
            "k5": ("joint_tail",), "k6": ("joint_tail", "joint_tail_bwd"),
-           "k7": ("ctc_lattice",), "k8": ("ctc_lattice",)}
+           "k7": ("ctc_lattice",), "k8": ("ctc_lattice",),
+           "k1w": ("lstm_fwd_wide",), "k2w": ("lstm_bwd_wide",)}
 TRACE = {"k3": "rnnt_fwd_kernel", "k4": "rnnt_bwd_kernel",
          "k5": "joint_tail_fwd_kernel", "k6": "joint_tail_bwd_kernel",
-         "k7": "ctc_fwd_kernel", "k8": "ctc_bwd_kernel"}
+         "k7": "ctc_fwd_kernel", "k8": "ctc_bwd_kernel",
+         "k1w": "lstm_fwd_wide_kernel", "k2w": "lstm_bwd_wide_kernel"}
+# K2's cluster size on the wide route (--cluster).
+CLUSTER = {"k2w": 2}
 
 
 def emit(kind: str, **fields) -> None:
@@ -136,14 +155,17 @@ def ncu(kernel: str, run: bool) -> None:
     emit("ncu", **out)
 
 
-def variant_library(source: str, define: str):
-    """``csrc/<source>.cu`` built once more with ``-D<define>``, loaded."""
+def variant_library(source: str, *defines: str):
+    """``csrc/<source>.cu`` built once more with ``-D<define>`` for each of
+    ``defines``, loaded."""
     from myrtlespeech_tpu_torch.ops.cuda import build
 
-    out = build.BUILD_DIR / define.lower() / f"{source}.so"
+    out = build.BUILD_DIR / "_".join(d.lower() for d in defines) \
+        / f"{source}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, f"-D{define}", "-o",
-                    str(out), str(build.CSRC_DIR / f"{source}.cu")],
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS,
+                    *(f"-D{d}" for d in defines), "-o", str(out),
+                    str(build.CSRC_DIR / f"{source}.cu")],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(out))
 
@@ -205,6 +227,59 @@ def phase_clocks(kernel: str, labels, dev) -> None:
             torch.cuda.empty_cache()
 
 
+# The wide K1's and K2's profiling builds (--phases): the phases of a step
+# (csrc/lstm_wide.cuh), and the builds, each a list of switches.
+WIDE_PHASES = ("barrier_wait", "products_registers", "products_shared",
+               "warp_reduction", "cluster_exchange", "epilogue_and_loads",
+               "kernel")
+WIDE_BUILDS = (("all", ("LSTM_WIDE_PHASES",)),
+               ("exchange_loads_only", ("LSTM_WIDE_PHASES",
+                                        "LSTM_WIDE_SKIP_MMA")),
+               ("products_only", ("LSTM_WIDE_PHASES",
+                                  "LSTM_WIDE_SKIP_LOADS")))
+
+
+def wide_phase_clocks(kernel: str, labels, dev) -> None:
+    from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+
+    source = SOURCES[kernel][0]
+    cluster = CLUSTER.get(kernel, 1)
+    reader = f"{source}_phase_clocks_read"
+    for build_name, defines in WIDE_BUILDS:
+        lib = variant_library(source, *defines)
+        with Swapped(source, lib):
+            for label in labels:
+                run, _, _, _, dims = _case(kernel, label, dev)
+                T, H = dims["T"], dims["H"]
+                blocks = k.wide_blocks(H, cluster)[kernel == "k2w"]
+                clocks = (ctypes.c_ulonglong * len(WIDE_PHASES))()
+                run()
+                torch.cuda.synchronize()
+                getattr(lib, reader)(clocks)  # zeroes them
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end)
+                getattr(lib, reader)(clocks)
+                total = clocks[len(WIDE_PHASES) - 1]
+                share = {n: clocks[i] / total
+                         for i, n in enumerate(WIDE_PHASES)}
+                emit("phases", kernel=kernel, shape=label, build=build_name,
+                     defines=list(defines), **dims, blocks=blocks,
+                     device_ms=ms,
+                     clocks_a_block_step={
+                         n: clocks[i] / (blocks * T)
+                         for i, n in enumerate(WIDE_PHASES)},
+                     share=share,
+                     us_a_step_by_share={n: 1e3 * ms * v / T
+                                         for n, v in share.items()})
+                del run
+                torch.cuda.empty_cache()
+
+
 def kernel_device_ms(run, name: str) -> float:
     import chip_smoke as cs
 
@@ -236,6 +311,24 @@ def bare_times(kernel: str, labels, dev) -> None:
 def _case(kernel: str, label: str, dev):
     """(run, plain, outputs' names, bound args) of one shape."""
     import chip_smoke as cs
+
+    if kernel in ("k1w", "k2w"):
+        from myrtlespeech_tpu_torch.ops.cuda import lstm_kernel as k
+
+        T, B, H = LSTM_SHAPES[label]
+        dims = dict(T=T, B=B, H=H)
+        if kernel == "k1w":
+            args = cs._k1_case(T, B, H, seed=60, dev=dev,
+                               random_state=False)
+            return (lambda: k.lstm_fwd_wide(*args),
+                    lambda: k.lstm_fwd_reference(*args), cs.K1_OUTPUTS,
+                    cs.bound(*cs.k1_work(T, B, H)), dims)
+        args = cs._k2_case(T, B, H, seed=61, dev=dev)
+        cluster = CLUSTER["k2w"]
+        return (lambda: k.lstm_bwd_wide(*args, cluster=cluster),
+                lambda: k.lstm_bwd_reference(*args), cs.K2_OUTPUTS,
+                cs.bound(*cs.k2_work(T, B, H, need_dh0=True)),
+                dict(dims, cluster=cluster))
 
     if kernel in ("k3", "k4"):
         from myrtlespeech_tpu_torch.ops.cuda import rnnt_kernel as k
@@ -351,6 +444,8 @@ def main() -> int:
     p.add_argument("--ncu", action="store_true")
     p.add_argument("--phases", action="store_true")
     p.add_argument("--bare", action="store_true")
+    p.add_argument("--cluster", type=int, choices=(1, 2), default=2,
+                   help="k2w: blocks a cluster")
     p.add_argument("--once", action="store_true",
                    help="one call of each shape, nothing printed (for ncu)")
     a = p.parse_args()
@@ -361,6 +456,7 @@ def main() -> int:
     sys.path.append(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     dev = torch.device("cuda", 0)
+    CLUSTER["k2w"] = a.cluster
     shapes = a.shapes.split(",") if a.shapes else list(SHAPES[a.kernel])
     if not a.once:
         smi = subprocess.run(
@@ -377,6 +473,8 @@ def main() -> int:
         probe_shape(a.kernel, label, dev, a.once)
     if a.phases and a.kernel in PHASE_BUILDS:
         phase_clocks(a.kernel, shapes, dev)
+    if a.phases and a.kernel in ("k1w", "k2w"):
+        wide_phase_clocks(a.kernel, shapes, dev)
     if a.bare and a.kernel in BARE:
         bare_times(a.kernel, shapes, dev)
     return 0

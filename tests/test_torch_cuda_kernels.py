@@ -211,7 +211,7 @@ def test_persistent_k1_k2_are_deterministic():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(3, 2, 2048), (4, 130, 64),
+@pytest.mark.parametrize("T,B,H", [(3, 2, 4096), (4, 130, 64),
                                    # the beams' prediction nets, B * W rows:
                                    # rnn_t_960_beam, synthetic_medium_rnnt
                                    (1, 512, 320), (1, 256, 128)])
@@ -259,14 +259,122 @@ def test_persistent_shared_memory_matches_the_sources(H):
 
 @pytest.mark.cuda
 def test_a_persistent_grid_the_card_cannot_hold_raises():
-    # 2048 / 8 = 256 blocks of one an SM: the co-residency check refuses the
-    # launch, and nothing runs another way.
+    # 4096 / 8 = 512 blocks of one an SM, a width that no on-chip route
+    # holds: the co-residency check refuses the launch, and nothing runs
+    # another way.
     dev = _card()
-    args = _k1_inputs(2, 2, 2048, seed=17, dev=dev)
+    args = _k1_inputs(2, 2, 4096, seed=17, dev=dev)
     before = port_k1.lstm_fwd_persistent.launches
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         port_k1.lstm_fwd_persistent(*args)
     assert port_k1.lstm_fwd_persistent.launches == before
+
+
+# The wide K1 and K2 (B <= 32, H up to 2,048: DeepSpeech1's BiLSTM-2048),
+# K2 in clusters of 1 and of 2 blocks, against their plain versions, with
+# the tolerances of the long sequences above: at DeepSpeech1's width over 80
+# steps, at a ragged shape (H=1100: a unit, k and row tail in every tile)
+# and at one row.
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("T,B,H", [(80, 32, 2048), (17, 5, 1100),
+                                   (3, 1, 2048)])
+def test_wide_k1_k2_match_plain_versions(T, B, H, cluster):
+    dev = _card()
+    args = _k1_inputs(T, B, H, seed=21, dev=dev)
+    args[2] = args[2] * (10.0 / np.sqrt(H))
+    valid, w_hh, c0 = args[1], args[2], args[4]
+    b = torch.linspace(-0.5, 0.5, 4 * H, device=dev)
+    before = (port_k1.lstm_fwd_wide.launches, port_k1.lstm_bwd_wide.launches)
+    got = port_k1.lstm_fwd_wide(*args, b)
+    torch.cuda.synchronize()
+    want = port_k1.lstm_fwd_reference(*args, b)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        tol = LONG_BF16_TOL if g.dtype == torch.bfloat16 else LONG_FP32_TOL
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+    _, cs, ifgo, _, _ = want
+    cot = _k2_cotangents(T, B, H, seed=22, dev=dev)
+    for need_dh0 in (True, False):
+        got = port_k1.lstm_bwd_wide(valid, w_hh, c0, cs, ifgo, *cot,
+                                    need_dh0, cluster=cluster)
+        torch.cuda.synchronize()
+        want = port_k1.lstm_bwd_reference(valid, w_hh, c0, cs, ifgo, *cot,
+                                          need_dh0)
+        for name, g, w in zip(("dz", "dh0", "dc0"), got, want):
+            if w is None:
+                assert g is None, name
+                continue
+            _close_to_scale(g, w, LONG_K2_TOL, name)
+    assert (port_k1.lstm_fwd_wide.launches,
+            port_k1.lstm_bwd_wide.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2])
+def test_wide_k1_k2_are_deterministic(cluster):
+    # The warps' partial sums, and K2's blocks' sums across the cluster,
+    # meet in a fixed order: two calls on the same inputs are bit-equal.
+    dev = _card()
+    T, B, H = 96, 32, 2048
+    args = _k1_inputs(T, B, H, seed=23, dev=dev)
+    args[2] = args[2] * (10.0 / np.sqrt(H))
+    valid, w_hh, c0 = args[1], args[2], args[4]
+    runs = [port_k1.lstm_fwd_wide(*args) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    _, cs, ifgo, _, _ = runs[0]
+    cot = _k2_cotangents(T, B, H, seed=24, dev=dev)
+    runs = [port_k1.lstm_bwd_wide(valid, w_hh, c0, cs, ifgo, *cot, True,
+                                  cluster=cluster) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32])
+def test_the_bilstm_2048_dispatches_to_the_wide_kernels(B):
+    # DeepSpeech1's width at a serving row and its train batch: one launch a
+    # call on the wide route, none on the other two.
+    dev = _card()
+    T, H = 3, 2048
+    assert port_k1._route(dev, B, H) == "wide"
+    args = _k1_inputs(T, B, H, seed=25, dev=dev)
+    valid, w_hh, c0 = args[1], args[2], args[4]
+    counters = [port_k1.lstm_fwd, port_k1.lstm_fwd_wide,
+                port_k1.lstm_fwd_persistent, port_k1.lstm_fwd_stepwise,
+                port_k1.lstm_bwd, port_k1.lstm_bwd_wide,
+                port_k1.lstm_bwd_persistent, port_k1.lstm_bwd_stepwise]
+    before = [fn.launches for fn in counters]
+    _, cs, ifgo, _, _ = port_k1.lstm_fwd(*args)
+    cot = _k2_cotangents(T, B, H, seed=26, dev=dev)
+    port_k1.lstm_bwd(valid, w_hh, c0, cs, ifgo, *cot, True)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [
+        1, 1, 0, 0, 1, 1, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 20, 1100, 2048])
+def test_wide_shared_memory_matches_the_sources(H):
+    _card()
+    for cluster in (1, 2):
+        got = (port_k1._library("lstm_fwd_wide").lstm_fwd_wide_smem_bytes(H),
+               port_k1._library("lstm_bwd_wide").lstm_bwd_wide_smem_bytes(
+                   H, cluster))
+        assert got == port_k1.wide_smem_bytes(H, cluster)
+
+
+@pytest.mark.cuda
+def test_a_wide_call_the_card_cannot_hold_raises():
+    # H=4096: the wide kernels' slices are over a block's shared memory; the
+    # launch is refused, and nothing runs another way.
+    dev = _card()
+    args = _k1_inputs(2, 2, 4096, seed=27, dev=dev)
+    before = port_k1.lstm_fwd_wide.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        port_k1.lstm_fwd_wide(*args)
+    assert port_k1.lstm_fwd_wide.launches == before
 
 
 def _lattice_inputs(B, T, U1, seed, dev):

@@ -382,9 +382,13 @@ def test_deep_speech_1_en_builds_on_the_meta_device():
 
 
 def test_the_bilstm_2048_takes_the_per_step_route():
-    # An H100: 132 SMs, 232,448 bytes of shared memory a block.  256 blocks
-    # of 8 units do not fit one an SM.
-    assert lstm_route(32, 2048, 132, 232448) == "stepwise"
+    # The BiLSTM-2048 is over the persistent route's grid and per-step
+    # shapes alike: on an H100 (132 SMs, 232,448 bytes of shared memory a
+    # block) 256 blocks of the persistent route's 8 units do not fit one an
+    # SM, and 128 of the wide route's 16 do, at the train and serve batch
+    # and at one row, so it leaves the per-step route for the wide one.
+    assert lstm_route(32, 2048, 132, 232448) == "wide"
+    assert lstm_route(1, 2048, 132, 232448) == "wide"
     assert lstm_route(32, 800, 132, 232448) == "persistent"
 
 
