@@ -139,7 +139,24 @@ seconds since the start); any failure exits non-zero:
              a stage split, a traced run and one on the per-step route, the
              logits against the plain versions forced on the card, K1's
              calls against the plain version (twice, bit-equal), plain and
-             cuDNN replays.  Then ``rnnt_beam_serve``:
+             cuDNN replays.  Then ``encdec_train``: an EncoderDecoder built
+             inline (``encdec_config``: deep_speech_2_en's task with VGG-A's
+             first two blocks, 3 BiGRU-800 layers and FC-1600, greedy; no
+             config of the repo builds the family) trains on B=32 x 16.7 s
+             with 214 labels (T'=417): K7 and K8 one launch a step and no
+             LSTM kernel (the GRU is a PyTorch recurrence), no plain
+             version; step time, split, peak memory, one traced step split
+             by ``StepMarks`` into VGG, GRU and head segments each way (the
+             idle share, device ms by kind, the events a step); the K7 and
+             K8 calls against their plain versions.  ``encdec_serve``: the
+             same model transcribes B=32 x 16.7 s greedily: three timed
+             runs, no launch, a stage split, a traced run.  ``cells``: each
+             of GRU, BASIC_RNN, HARD_LSTM (fp32) and LSTM (bf16, K1/K2) as
+             that model's RNN at B=4 x 2 s, H=64, the card against the CPU
+             on the same weights and features (outputs, final states,
+             logits, loss, every gradient and statistic, greedy tokens);
+             cuDNN's ``nn.GRU`` in bf16 at the full-width shape, timed, as
+             the yardstick for a GRU kernel.  Then ``rnnt_beam_serve``:
              ``rnn_t_960_beam`` (the
              flagship model, 5 encoder LSTM-1024 and 2 prediction LSTM-320
              layers, joint 512, V=29) with seeded weights transcribes
@@ -242,9 +259,9 @@ K1's and K2's entries also hold ``us_per_step``, the per-step route's
 ds1 (the wide route),
 K1's also ds2_serve, ds1_serve, rnnt_beam_serve, with its launches and
 device ms by route, and trained_beam, with its launches by route and
-errors; K7 and K8 ds1; K1, K2, K7 and K8 fit_ds1, and K1, K2, K3, K4, K7
-and K8 the hard-corpus fits' paths, fit_preddrop, fit_hard_ctc and
-ft_hard_rnnt, with their errors against the plain versions), the
+errors; K7 and K8 ds1 and encdec; K1, K2, K7 and K8 fit_ds1, and K1, K2,
+K3, K4, K7 and K8 the hard-corpus fits' paths, fit_preddrop, fit_hard_ctc
+and ft_hard_rnnt, with their errors against the plain versions), the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every main
 path but the RNN-T beam's also asserts that K1's and K2's per-step route
 launched no time; DeepSpeech1's also that every K1 and K2 launch was the
@@ -451,6 +468,52 @@ DS1_PLAIN_TOL = {"loss": 1e-4, "grad_norm": 2e-2}
 # same kind of difference, a bf16 step of h here and there in the
 # recurrence, reaches the logits through two dense layers.
 DS1_LOGITS_TOL = 2e-2
+# The encoder-decoder cells (``encdec_train``, ``encdec_serve``): no config
+# of the repo builds the family, so the script builds one task inline (no
+# config file): deep_speech_2_en's alphabet, preprocess (80 log-mel bins,
+# standardize, SpecAugment at train time), CTC loss, SGD and schedule, with
+# the greedy CTC decoder and an EncoderDecoder at DS2's widths: VGG-A's
+# first two blocks with BatchNorm (80 mels -> 20 x 128 = 2,560 features at
+# T/4: T'=417 of 1,671 frames), 3 BiGRU-800 layers with masked BatchNorm
+# between, FC-1600 with ReLU.  The GRU recurrence is PyTorch on the card (no
+# kernel: the JAX package runs it through ``lax.scan``), so no LSTM kernel
+# launches; K7 and K8 once a step; nothing in serving.
+ENCDEC_LAUNCHES = dict(CTC_LAUNCHES, k1=0, k2=0)
+ENCDEC_SERVE_LAUNCHES = dict(DS2_SERVE_LAUNCHES, k1=0)
+ENCDEC_FRAMES = 1671 // 4
+ENCDEC_STEPS = 3
+# The ``cells`` phase: each RNN cell as the encoder-decoder's RNN (2
+# BiRNN-64 layers with BatchNorm between, VGG-A's first two blocks,
+# FC-128) at B=4 x 2 s, 12 labels at most; the card against the same module
+# on the CPU, same weights and features.  GRU, BASIC_RNN and HARD_LSTM in
+# float32: both sides compute the same fp32 products (TF32 off), so only
+# the order of sums and K7's one approximate log a cell (K7_RTOL) set them
+# apart: 1e-4 of the largest magnitude for the RNN's outputs, final states
+# and the logits, and the loss (relative), 1e-3 of each leaf's largest
+# magnitude for the gradients, which K8 scales by the occupancies that
+# K7's alphas give, and for their global norm.  VGG's leaves under its
+# BatchNorm take 1e-2: BatchNorm's backward hands each conv a gradient
+# that sums to 0 over its positions, so a kernel's gradient is a sum of
+# terms that cancel, and cuDNN and the CPU sum them in other orders (an
+# H100 read Conv_1's kernel 2.2e-3 of its largest magnitude apart from the
+# CPU's in one run, under 1e-3 in another; PERF.md, PR 20).  LSTM in
+# bfloat16, the only dtype K1 and K2 take: both
+# sides round alike, but K1 and K2 differ from their plain versions by a
+# bf16 step here and there (K1_TOL, K2_TOL) and cuDNN's bf16 convolutions
+# may round an output one bf16 step apart from the CPU's: the bf16 model's
+# 2e-2 (tests/test_torch_ds1.py) for outputs and, as DS1_PLAIN_TOL, for the
+# global gradient norm. A leaf's gradient moves more: where a bf16 step moves
+# an FC pre-activation across 0, the ReLU passes or cuts that frame's whole
+# row of the head's gradient (DS1_PLAIN_TOL's clipped ReLUs), and an H100
+# read FullyConnected_0.Dense_0.kernel's gradient 0.067 of its largest
+# magnitude apart from the CPU's (PERF.md, PR 20): 1e-1 for each leaf, VGG's
+# too. Greedy tokens: every frame's argmax equal, but where the CPU's top two
+# logits lie within twice the logits' largest error of each other.
+CELLS_BATCH, CELLS_SECONDS, CELLS_WIDTH, CELLS_LABELS = 4, 2.0, 64, 12
+CELLS_TOL = {"float32": {"outputs": 1e-4, "grads": 1e-3, "vgg_grads": 1e-2,
+                         "grad_norm": 1e-3},
+             "bfloat16": {"outputs": 2e-2, "grads": 1e-1, "vgg_grads": 1e-1,
+                          "grad_norm": 2e-2}}
 # Copies to the host allowed in the decode window: the transcript's tokens
 # and lengths at its end.
 DECODE_DTOH_COPIES = 2
@@ -2635,8 +2698,8 @@ def ctc_step_replays(calls, label: str) -> dict:
     and ll), the chain against float64 (``ctc_chain_errors``), the plain
     versions' traced device ms, ``F.ctc_loss``'s forward (from the
     log-probs) and backward on the step's own logits as the yardstick
-    (log_softmax is left out of both, as it is outside K7 and K8), and the
-    bounds.  Empties ``calls``."""
+    (log_softmax is left out of both, as it is outside K7 and K8; CUDA
+    events, queued), and the bounds.  Empties ``calls``."""
     from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel
 
     (k7_args,), (k8_args,), (loss_args,) = (calls.pop("k7"),
@@ -2661,16 +2724,16 @@ def ctc_step_replays(calls, label: str) -> dict:
     logp = torch.log_softmax(logits.detach().float(), -1).transpose(0, 1)
     logp = logp.detach().requires_grad_()
     lib_args = (labels.long(), logit_lens.long(), label_lens.long())
-    torch.nn.functional.ctc_loss(logp, *lib_args, blank=blank,
-                                 reduction="none")  # warm-up
-    _, lib_fwd = device_trace(lambda: torch.nn.functional.ctc_loss(
-        logp, *lib_args, blank=blank, reduction="none"), or_events=True)
+    # CUDA events queued behind a spin kernel, not a trace: the profiler
+    # has dropped F.ctc_loss's kernels from a trace and kept a memset, which
+    # then read as a call of some microseconds.
+    lib_fwd_ms = cuda_ms(lambda: torch.nn.functional.ctc_loss(
+        logp, *lib_args, blank=blank, reduction="none"), 3, queued=True)
     lib_nll = torch.nn.functional.ctc_loss(logp, *lib_args, blank=blank,
                                            reduction="none")
     ones = torch.ones_like(lib_nll)
-    torch.autograd.grad(lib_nll, logp, ones, retain_graph=True)  # warm-up
-    _, lib_bwd = device_trace(lambda: torch.autograd.grad(
-        lib_nll, logp, ones, retain_graph=True), or_events=True)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_nll, logp, ones, retain_graph=True), 3, queued=True)
     del logp, lib_nll, loss_args, logits
     lattice = list(k7_args[0].shape)
     (f7, n7), (f8, n8) = k78_work(*lattice)
@@ -2680,8 +2743,8 @@ def ctc_step_replays(calls, label: str) -> dict:
     torch.cuda.empty_cache()
     return {"lattice": lattice, "errors": errs, "chain_vs_float64": chain,
             "k7_plain_ms": span_ms(k7_plain), "k8_plain_ms": span_ms(k8_plain),
-            "library_fwd_ms": span_ms(lib_fwd),
-            "library_bwd_ms": span_ms(lib_bwd), "k7_bound_ms": b7,
+            "library_fwd_ms": lib_fwd_ms, "library_bwd_ms": lib_bwd_ms,
+            "k7_bound_ms": b7,
             "k7_bound_by": by7, "k8_bound_ms": b8, "k8_bound_by": by8}
 
 
@@ -3024,7 +3087,7 @@ def phase_ds2_serve(dev):
             out = tr.transcribe(wav, lens)  # ends in a copy to the host
             times.append(time.perf_counter() - t0)
         launches = _read_counts()
-        stages = stage_ms(tr, wav, lens, model_key="model_ms")
+        stages = stage_ms(tr, wav, lens, runs=1, model_key="model_ms")
         traced_wall_ms, spans, kernel_spans, retries = trace_step(
             lambda: tr.transcribe(wav, lens), DS2_SERVE_LAUNCHES)
     if guard.calls:
@@ -3537,7 +3600,7 @@ def phase_rnnt_beam_serve(dev):
             launches = _read_counts()
             routes.append(k1_routes(launches))
             loops.append(dict(rnnt_beam.LOOP_COUNTS))
-        stages = stage_ms(tr, wav, lens)
+        stages = stage_ms(tr, wav, lens, runs=1)
         _zero_counts()
         traced_wall_ms, spans = device_trace(lambda: tr.transcribe(wav,
                                                                    lens))
@@ -4830,6 +4893,489 @@ def phase_fit_ds1(dev, workdir: str):
     return replays
 
 
+def encdec_config(rnn_type=None, width: int = 800, layers: int = 3,
+                  fc: int = 1600, dtype: str = "bfloat16"):
+    """deep_speech_2_en's task with an EncoderDecoder in place of its model
+    and the greedy CTC decoder in place of its beam: VGG-A's first two
+    blocks with BatchNorm, ``layers`` bidirectional layers of ``rnn_type``
+    (GRU by default) at ``width`` with masked BatchNorm between, FC-``fc``
+    with ReLU (the default widths are DS2's)."""
+    from myrtlespeech_tpu_torch.config import schema as S
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    base = load_config("deep_speech_2_en")
+    rnn_type = rnn_type or S.RNNType.GRU
+    lstm = rnn_type in (S.RNNType.LSTM, S.RNNType.HARD_LSTM)
+    model = S.EncoderDecoderConfig(
+        encoder=S.EncoderConfig(
+            vgg=S.VGGConfig(vgg_cfg=S.VGGCfg.A, batch_norm=True,
+                            use_output_from_block=2),
+            rnn=S.RNNConfig(rnn_type=rnn_type, hidden_size=width,
+                            num_layers=layers, bidirectional=True,
+                            batch_norm=True,
+                            forget_gate_bias=1.0 if lstm else None)),
+        decoder=S.FullyConnectedConfig(num_hidden_layers=1, hidden_size=fc,
+                                       activation=S.Activation.RELU))
+    stt = S.replace(base.speech_to_text, model=model,
+                    post_process=S.CTCGreedyDecoderConfig(blank_index=0))
+    return S.replace(base, speech_to_text=stt, train_config=S.replace(
+        base.train_config, compute_dtype=dtype))
+
+
+class StepMarks:
+    """One-cycle spin kernels (``spin_kernel`` in a trace) launched at named
+    points of an encoder-decoder's train step, so that the step's device
+    timeline splits in stream order into ``SEGMENTS``: the features, VGG's
+    forward (a pre-hook), the RNN's forward (a hook on VGG's output), the FC
+    head, the loss and their backward (a hook on the RNN's output), the
+    RNN's backward (the gradient of the RNN's output), VGG's backward (the
+    gradient of VGG's output, which the RNN's backward completes), the
+    optimizer (its ``step``).  Each segment's device ms, kernels and span
+    then come from one traced step (``split``)."""
+
+    SEGMENTS = ("features", "vgg_fwd", "rnn_fwd", "head_and_loss",
+                "rnn_bwd", "vgg_bwd", "optimizer")
+
+    def __init__(self, model, optimizer):
+        self.labels = []
+        enc = model.Encoder_0
+        self.handles = [
+            enc.VGG_0.register_forward_pre_hook(
+                lambda m, a: self.mark("vgg_fwd")),
+            enc.VGG_0.register_forward_hook(
+                functools.partial(self._out, "rnn_fwd", "vgg_bwd")),
+            enc.RNN_0.register_forward_hook(
+                functools.partial(self._out, "head_and_loss", "rnn_bwd"))]
+        self.optimizer = optimizer
+        self.real_step = optimizer.step
+
+        def marked_step(*args, **kwargs):
+            self.mark("optimizer")
+            return self.real_step(*args, **kwargs)
+
+        optimizer.step = marked_step
+
+    def mark(self, label: str) -> None:
+        torch.cuda._sleep(1)
+        self.labels.append(label)
+
+    def _out(self, fwd_label, bwd_label, module, args, out):
+        self.mark(fwd_label)
+        y = out[0]
+        if y.requires_grad:
+            y.register_hook(lambda g: self.mark(bwd_label))
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+        del self.optimizer.step
+
+    def split(self, spans) -> dict:
+        """Each segment's device ms (kernels and copies, the marks left
+        out), its events and its span (first event's start to the next
+        mark's start), from a trace of one marked step; an empty dict when
+        the trace's marks do not match the labels."""
+        marks = sorted(s for n, s, _ in spans if "spin_kernel" in n)
+        if len(marks) != len(self.labels) \
+                or self.labels != list(self.SEGMENTS[1:]):
+            return {}
+        out = {seg: {"device_ms": 0.0, "events": 0, "span_ms": 0.0}
+               for seg in self.SEGMENTS}
+        first = min(s for _, s, _ in spans)
+        last = max(e for _, _, e in spans)
+        bounds = [first] + marks + [last]
+        for seg, lo, hi in zip(self.SEGMENTS, bounds, bounds[1:]):
+            out[seg]["span_ms"] = (hi - lo) / 1e3
+        for name, s0, e0 in spans:
+            if "spin_kernel" in name:
+                continue
+            i = sum(1 for m in marks if m <= s0)
+            out[self.SEGMENTS[i]]["device_ms"] += (e0 - s0) / 1e3
+            out[self.SEGMENTS[i]]["events"] += 1
+        return out
+
+
+# Substrings of cuDNN's convolution kernels' names (forward, data and
+# weight gradients, and their layout transforms) in a trace.
+CONV_NAMES = ("conv", "fprop", "dgrad", "wgrad", "xmma", "implicit",
+              "cudnn", "nhwc", "nchw")
+
+
+def phase_encdec_train(dev):
+    """The encoder-decoder (``encdec_config``: VGG-A's first two blocks,
+    BiGRU-800 x 3, FC-1600) trains on B=32 x 16.7 s with 214 labels
+    through ``make_train_step``: K7 and K8 launch once a step and no LSTM
+    kernel, no plain version runs; finite loss and gradient norm, every
+    parameter and BatchNorm statistic moved after the first timed step;
+    step time (median of ENCDEC_STEPS), split, peak memory; one traced
+    step with ``StepMarks``: the idle share, device ms by segment (VGG, the
+    GRU recurrence, the head and loss, each way) and by kernel, K7's and
+    K8's device ms, the events a step; the K7 and K8 calls of one step
+    against their plain versions (``ctc_step_replays``), with F.ctc_loss on
+    the step's logits as the yardstick.  Returns the ``encdec`` paths of
+    K7's and K8's ``kernels`` entries."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel
+    from myrtlespeech_tpu_torch.run import train
+
+    B, secs, U = CTC_BATCH, CTC_SECONDS, CTC_LABELS
+    task = build_task(encdec_config())
+    t0 = time.perf_counter()
+    state = train.init_state(task, seed=0, device=str(dev))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    batch = train.to_device(train.example_batch(B, secs, U, 0), dev)
+    step = train.make_train_step(task)
+    state, _ = step(state, batch)  # warm-up: step 0, whose lr is 0
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state.step = task.cfg.train_config.lr_warmup_steps  # as train_ctc
+    before = {n: t.detach().clone()
+              for n, t in state.model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses, gnorms = [], [], []
+    with _plain_guard() as guard:
+        _zero_counts()
+        for i in range(ENCDEC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            if i == 0:
+                moved = {n: (t.detach() - before[n]).abs().max().item()
+                         for n, t in state.model.state_dict().items()}
+        launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del before
+    if guard.calls:
+        raise AssertionError(f"plain versions ran on the encoder-decoder "
+                             f"train path: {dict(guard.calls)}")
+    want = {k: n * ENCDEC_STEPS for k, n in ENCDEC_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"launches over {ENCDEC_STEPS} encoder-decoder "
+                             f"steps: {launches}, expected {want}")
+    if not all(np.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"encoder-decoder loss {losses} or grad_norm "
+                             f"{gnorms} not finite")
+    still = [n for n, v in moved.items() if not v > 0]
+    if still:
+        raise AssertionError(f"after the first timed step these did not "
+                             f"move: {still}")
+
+    # Stage split of one more step, host clock, synced at each boundary;
+    # the step's K7 and K8 calls and the loss's inputs recorded for the
+    # replays (a recorded run counts no launch).
+    split = []
+
+    def split_step():
+        torch.cuda.synchronize()
+        split.append(time.perf_counter())
+        state.optimizer.zero_grad()
+        loss, (logits, out_lens) = train._forward(task, state.model, batch,
+                                                  True, state.gen)
+        torch.cuda.synchronize()
+        split.append(time.perf_counter())
+        if tuple(logits.shape) != (B, ENCDEC_FRAMES, 29) \
+                or not bool((out_lens == ENCDEC_FRAMES).all()):
+            raise AssertionError(f"encoder-decoder logits "
+                                 f"{tuple(logits.shape)}, lengths "
+                                 f"{out_lens.tolist()}")
+        del logits
+        loss.backward()
+        torch.cuda.synchronize()
+        split.append(time.perf_counter())
+        state.optimizer.step(state.step)
+        state.step += 1
+        torch.cuda.synchronize()
+        split.append(time.perf_counter())
+
+    calls = record_many({"k7": (ctc_kernel, "ctc_lattice_fwd"),
+                         "k8": (ctc_kernel, "ctc_lattice_bwd"),
+                         "loss": (ctc_kernel, "ctc_loss_lattice")},
+                        split_step)
+
+    marks = StepMarks(state.model, state.optimizer)
+    try:
+        traced_wall_ms, spans, kernel_spans, retries = trace_step(
+            lambda: (marks.labels.clear(), step(state, batch)),
+            ENCDEC_LAUNCHES)
+    finally:
+        marks.remove()
+    segments = marks.split(spans)
+    by_kernel = collections.Counter()
+    for name, s0, e0 in spans:
+        by_kernel[name[:80]] += (e0 - s0) / 1e3
+    busy = busy_ms(spans)
+    kernel_ms = {k: span_ms(kernel_spans[k]) for k in ("k7", "k8")}
+    conv_ms = sum((e0 - s0) / 1e3 for n, s0, e0 in spans
+                  if any(c in n.lower() for c in CONV_NAMES))
+    by_kind = {"k7": kernel_ms["k7"], "k8": kernel_ms["k8"],
+               "conv_kernels": conv_ms}
+    if segments:
+        for kind, segs in (("vgg", ("vgg_fwd", "vgg_bwd")),
+                           ("gru", ("rnn_fwd", "rnn_bwd"))):
+            by_kind[kind] = sum(segments[g]["device_ms"] for g in segs)
+            by_kind[f"{kind}_span"] = sum(segments[g]["span_ms"]
+                                          for g in segs)
+            by_kind[f"{kind}_events"] = sum(segments[g]["events"]
+                                            for g in segs)
+
+    ctc = ctc_step_replays(calls, "encoder-decoder step")
+    del calls, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = 1e3 * statistics.median(times)
+    emit("encdec_train", model="EncoderDecoder (VGG-A 2 blocks, BiGRU-800 "
+         "x 3, FC-1600) on deep_speech_2_en's task", batch=B, seconds=secs,
+         labels=U, lattice=ctc["lattice"], parameters=n_params,
+         setup_s=setup_s, ms_per_step=ms, ms_runs=[1e3 * t for t in times],
+         audio_s_per_s=B * secs / (ms / 1e3), losses=losses,
+         grad_norms=gnorms, launches_per_step=ENCDEC_LAUNCHES,
+         max_move_step1=max(moved.values()),
+         min_move_step1=min(moved.values()),
+         forward_ms=1e3 * (split[1] - split[0]),
+         backward_ms=1e3 * (split[2] - split[1]),
+         optimizer_ms=1e3 * (split[3] - split[2]), peak_memory_gb=peak_gb,
+         traced_wall_ms=traced_wall_ms, device_busy_ms=busy,
+         device_idle_share=1.0 - busy / traced_wall_ms,
+         device_events=len(spans), trace_retries=retries,
+         device_ms_by_kind=by_kind, segments=segments,
+         device_ms_by_kernel=dict(by_kernel.most_common(12)), k78=ctc)
+    errs = ctc["errors"]
+    return [{"launches": ENCDEC_LAUNCHES["k7"], "ms": kernel_ms["k7"],
+             "lattice": ctc["lattice"], "plain_ms": ctc["k7_plain_ms"],
+             "bound_ms": ctc["k7_bound_ms"],
+             "library_ms": ctc["library_fwd_ms"],
+             "max_abs_err": max(errs["alphas"], errs["ll"]),
+             "chain_vs_float64": ctc["chain_vs_float64"]},
+            {"launches": ENCDEC_LAUNCHES["k8"], "ms": kernel_ms["k8"],
+             "lattice": ctc["lattice"], "plain_ms": ctc["k8_plain_ms"],
+             "bound_ms": ctc["k8_bound_ms"],
+             "library_ms": ctc["library_bwd_ms"],
+             "max_abs_err": errs["grad"]}]
+
+
+def phase_encdec_serve(dev):
+    """The encoder-decoder with seeded weights transcribes B=32 x 16.7 s of
+    seeded noise through ``build_transcriber`` and the greedy decoder: one
+    warm-up and three timed runs, no kernel launch and no plain version; a
+    stage split (features, model, decode); one traced run (idle share,
+    device ms by kernel); finite logits of (B, 417, 29), the transcriber's
+    tokens those of the logits' greedy decode."""
+    from myrtlespeech_tpu_torch.builders.build import random_params
+    from myrtlespeech_tpu_torch.run.infer import (build_transcriber,
+                                                  random_audio)
+
+    cfg = encdec_config()
+    t0 = time.perf_counter()
+    tr = build_transcriber(cfg, random_params(cfg, seed=0), device=str(dev))
+    setup_s = time.perf_counter() - t0
+    B, secs = CTC_BATCH, CTC_SECONDS
+    wav, lens = random_audio(B, secs, seed=0)
+    tr.transcribe(wav, lens)  # warm-up
+    times = []
+    with _plain_guard() as guard:
+        _zero_counts()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.transcribe(wav, lens)  # ends in a copy to the host
+            times.append(time.perf_counter() - t0)
+        launches = _read_counts()
+        stages = stage_ms(tr, wav, lens, runs=1, model_key="model_ms")
+        traced_wall_ms, spans, _, retries = trace_step(
+            lambda: tr.transcribe(wav, lens), ENCDEC_SERVE_LAUNCHES)
+    if guard.calls or any(launches.values()):
+        raise AssertionError(f"the encoder-decoder's serve path launched "
+                             f"{launches}, plain versions {guard.calls}")
+    with torch.inference_mode():
+        feats, flens = tr.preprocess(torch.as_tensor(wav, device=dev),
+                                     torch.as_tensor(lens, device=dev))
+        logits, out_lens = tr.outputs(feats, flens)
+        greedy = tr.decode_outputs(logits, out_lens)
+    if tuple(logits.shape) != (B, ENCDEC_FRAMES, 29) \
+            or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"encoder-decoder logits "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             "wrong shape")
+    if rows_differing(greedy, (out.tokens, out.lengths)):
+        raise AssertionError("the greedy decode of the logits differs from "
+                             "the transcriber's")
+    by_kernel = collections.Counter()
+    for name, s0, e0 in spans:
+        by_kernel[name[:80]] += (e0 - s0) / 1e3
+    busy = busy_ms(spans)
+    ms = 1e3 * statistics.median(times)
+    emit("encdec_serve", decoder="greedy", batch=B, seconds=secs,
+         setup_s=setup_s, ms_per_batch=ms, ms_runs=[1e3 * t for t in times],
+         audio_s_per_s=B * secs / (ms / 1e3), **stages,
+         launches_per_batch=ENCDEC_SERVE_LAUNCHES,
+         traced_wall_ms=traced_wall_ms, trace_retries=retries,
+         device_busy_ms=busy, device_idle_share=1.0 - busy / traced_wall_ms,
+         device_events=len(spans),
+         device_ms_by_kernel=dict(by_kernel.most_common(10)),
+         token_lens=out.lengths.cpu().tolist())
+    del tr, feats, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cells_pass(task, model, feats, flens, labels, label_lens):
+    """One train-mode pass of an encoder-decoder taken apart (VGG, the
+    RNN with its final states, the head, the loss, backward), then its
+    eval-mode logits: ``(tensors, gradients, buffers, eval logits and
+    lengths)``, every tensor on the CPU in fp32."""
+    enc = model.Encoder_0
+    model.zero_grad(set_to_none=True)
+    y, lens = enc.VGG_0(feats, flens, True)
+    out, lens, states = enc.RNN_0(y, lens, True)
+    logits = model.FullyConnected_0(out, True)
+    loss = task.loss_fn(logits, lens, labels, label_lens)
+    loss.backward()
+
+    def leaves(tree):
+        if isinstance(tree, (list, tuple)):
+            return [t for sub in tree for t in leaves(sub)]
+        return [tree]
+
+    cpu = {"outputs": out, "logits": logits, "loss": loss.reshape(1)}
+    cpu.update({f"state_{i}": t for i, t in enumerate(leaves(states))})
+    cpu = {k: v.detach().float().cpu() for k, v in cpu.items()}
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    buffers = {n: b.float().cpu() for n, b in model.named_buffers()}
+    with torch.no_grad():
+        ev, ev_lens = model(feats, flens, False)
+    return cpu, grads, buffers, ev.float().cpu(), ev_lens.cpu()
+
+
+def _relative_max_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _grad_err(name: str, got: dict, want: dict) -> float:
+    """A gradient leaf's largest error over its largest magnitude; a VGG
+    conv's bias, whose gradient under BatchNorm is 0 but for rounding (the
+    batch mean takes the bias away), over its kernel's gradient's."""
+    scale = want[name]
+    if ".VGG_0.Conv_" in name and name.endswith(".bias"):
+        scale = want[name[:-len("bias")] + "kernel"]
+    return ((got[name] - want[name]).abs().max()
+            / scale.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_cells(dev):
+    """Each RNN cell (GRU, BASIC_RNN, HARD_LSTM, LSTM) as the
+    encoder-decoder's RNN at a small width (``CELLS_*``: B=4 x 2 s, 2
+    BiRNN-64 layers): one train-mode pass on the card against the same
+    module on the CPU (same weights, the CPU's features, labels): the RNN's
+    outputs and final states, the logits, the loss, every gradient and
+    BatchNorm statistic, within ``CELLS_TOL``; the eval-mode logits' greedy
+    tokens; the card's launches (K7/K8 once, K1/K2 for the LSTM only).
+    Then cuDNN's ``nn.GRU`` in bf16 at the encoder-decoder's full-width
+    shape (2,560 -> 800 x 3, bidirectional, T=417, B=32), forward and
+    forward with backward: the yardstick for a GRU kernel."""
+    from myrtlespeech_tpu_torch.builders.build import build_task, init_params
+    from myrtlespeech_tpu_torch.config import schema as S
+    from myrtlespeech_tpu_torch.decoding.ctc_greedy import ctc_greedy_decode
+    from myrtlespeech_tpu_torch.run import train
+
+    B = CELLS_BATCH
+    batch = train.example_batch(B, CELLS_SECONDS, CELLS_LABELS, seed=3)
+    n = batch["wav"].shape[1]
+    batch["wav_lens"] = np.array([n, 0.8 * n, 0.6 * n, 0.4 * n], np.int32)
+    batch["label_lens"] = np.array([CELLS_LABELS, 9, 5, 0], np.int32)
+    cpu_batch = train.to_device(batch, "cpu")
+    results = {}
+    for rnn_type in (S.RNNType.GRU, S.RNNType.BASIC_RNN,
+                     S.RNNType.HARD_LSTM, S.RNNType.LSTM):
+        dtype = "bfloat16" if rnn_type is S.RNNType.LSTM else "float32"
+        task = build_task(encdec_config(rnn_type, CELLS_WIDTH, 2, 128,
+                                        dtype))
+        feats, flens = task.preprocess(cpu_batch["wav"],
+                                       cpu_batch["wav_lens"])
+        model_cpu = task.build_model()
+        init_params(model_cpu, torch.Generator().manual_seed(0))
+        model_card = task.build_model()
+        model_card.load_state_dict(model_cpu.state_dict())
+        model_card.to(dev)
+        want = _cells_pass(task, model_cpu, feats, flens,
+                           cpu_batch["labels"], cpu_batch["label_lens"])
+        with _plain_guard() as guard:
+            _zero_counts()
+            got = _cells_pass(task, model_card, feats.to(dev),
+                              flens.to(dev), cpu_batch["labels"].to(dev),
+                              cpu_batch["label_lens"].to(dev))
+            launches = _read_counts()
+        lstm = rnn_type is S.RNNType.LSTM
+        if guard.calls or launches["k7"] != 1 or launches["k8"] != 1 \
+                or bool(launches["k1"]) != lstm \
+                or bool(launches["k2"]) != lstm:
+            raise AssertionError(f"cells {rnn_type.name}: launches "
+                                 f"{launches}, plain {dict(guard.calls)}")
+        tol = CELLS_TOL[dtype]
+        errs = {k: _relative_max_err(got[0][k], want[0][k])
+                for k in want[0]}
+        grad_errs = {k: _grad_err(k, got[1], want[1]) for k in want[1]}
+        stat_errs = {k: _relative_max_err(got[2][k], want[2][k])
+                     for k in want[2]}
+        logits_card, logits_cpu, ev_lens = got[3], want[3], want[4]
+        logits_err = (logits_card - logits_cpu).abs().max().item()
+        top2 = logits_cpu.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) <= 2 * logits_err
+        valid = torch.arange(logits_cpu.shape[1])[None, :] < ev_lens[:, None]
+        apart = (logits_card.argmax(-1) != logits_cpu.argmax(-1)) & valid
+        toks_card = ctc_greedy_decode(logits_card, ev_lens, 0)
+        toks_cpu = ctc_greedy_decode(logits_cpu, ev_lens, 0)
+        norms = [torch.linalg.vector_norm(torch.cat(
+            [g.flatten() for g in side[1].values()])).item()
+            for side in (got, want)]
+        norm_err = abs(norms[0] - norms[1]) / norms[1]
+        bad = {k: v for k, v in {**errs, **stat_errs}.items()
+               if not v <= tol["outputs"]}
+        bad.update({k: v for k, v in grad_errs.items()
+                    if not v <= tol["vgg_grads" if ".VGG_0." in k
+                                    else "grads"]})
+        if not norm_err <= tol["grad_norm"]:
+            bad["grad_norm"] = norm_err
+        if bad or bool((apart & ~tie).any()) \
+                or not torch.equal(got[4], ev_lens):
+            raise AssertionError(f"cells {rnn_type.name} ({dtype}): card "
+                                 f"against CPU beyond {tol}: {bad}; frames "
+                                 f"apart {int(apart.sum())}, near ties "
+                                 f"{int((apart & tie).sum())}")
+        results[rnn_type.name] = {
+            "dtype": dtype, "launches": launches, "errors": errs,
+            "grad_norm": norms[1], "grad_norm_err": norm_err,
+            "max_grad_err": max(grad_errs.values()),
+            "max_grad_err_leaf": max(grad_errs, key=grad_errs.get),
+            "max_stat_err": max(stat_errs.values()),
+            "eval_logits_max_abs_err": logits_err,
+            "argmax_frames_apart": int(apart.sum()),
+            "tokens_equal": not rows_differing(toks_card, toks_cpu),
+            "tolerance": tol}
+        del model_card, got
+        torch.cuda.empty_cache()
+
+    # cuDNN's GRU at the full-width layer shape, bf16, the yardstick.
+    gru = torch.nn.GRU(2560, 800, num_layers=3, bidirectional=True,
+                       batch_first=True).to(dev, torch.bfloat16)
+    x = torch.randn((CTC_BATCH, ENCDEC_FRAMES, 2560), device=dev,
+                    dtype=torch.bfloat16, requires_grad=True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: gru(x), 3)
+    ones = torch.ones((CTC_BATCH, ENCDEC_FRAMES, 1600), device=dev,
+                      dtype=torch.bfloat16)
+    fwd_bwd_ms = cuda_ms(lambda: gru(x)[0].backward(ones), 3)
+    del gru, x, ones
+    torch.cuda.empty_cache()
+    emit("cells", batch=B, seconds=CELLS_SECONDS, width=CELLS_WIDTH,
+         cells=results, cudnn_gru={
+             "shape": "bidirectional GRU 2560 -> 800 x 3, T=417, B=32, bf16",
+             "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms})
+
+
 def fit_phases(dev) -> dict:
     """The run-loop phases; returns the DS1 and hard-corpus fits' kernel
     figures by path and kernel (``hard_step_replays``)."""
@@ -4878,6 +5424,11 @@ def main(argv) -> int:
         entry["paths"] = {"ds1": fig}
         entry["max_abs_err"] = max(entry["max_abs_err"], fig["max_abs_err"])
     k1["paths"]["ds1_serve"] = phase_ds1_serve(dev)
+    for entry, fig in zip(k78, phase_encdec_train(dev)):
+        entry["paths"]["encdec"] = fig
+        entry["max_abs_err"] = max(entry["max_abs_err"], fig["max_abs_err"])
+    phase_encdec_serve(dev)
+    phase_cells(dev)
     k1["paths"]["rnnt_beam_serve"] = phase_rnnt_beam_serve(dev)
     phase_ctc_decode_fixture(dev)
     phase_ctc_falls(dev)

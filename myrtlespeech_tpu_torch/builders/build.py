@@ -1,11 +1,11 @@
 """Builders: TaskConfig -> modules and callables for serving and training.
 
-Port of ``myrtlespeech_tpu/builders/build.py`` for the RNN-T,
-DeepSpeech1 and DeepSpeech2: ``vocab_size`` (``:58``), ``build_preprocess``
+Port of ``myrtlespeech_tpu/builders/build.py`` for every model family of
+the schema (RNN-T, DeepSpeech1, DeepSpeech2 and the encoder-decoder, with
+any of the four RNN cells): ``vocab_size`` (``:58``), ``build_preprocess``
 (log-mel or MFCC, standardize, context frames, SpecAugment) and
 ``preprocess_out_features`` (``:67-137``), ``validate_model_shapes`` for a
-conv block and ``build_model`` for RNN-T, DeepSpeech1 and DeepSpeech2
-(``:145-202``),
+conv block and a VGG front end and ``build_model`` (``:145-202``),
 the CTC and transducer ``build_loss`` (``:213-275``; its
 ``weighted_reduce`` lives in ``ops/rnnt.py``),
 ``build_fused_transducer_loss`` (``:277-311``),
@@ -48,7 +48,9 @@ from myrtlespeech_tpu_torch.decoding.rnnt_greedy import rnnt_greedy_decode
 from myrtlespeech_tpu_torch.models.cnn import conv_block_out_features
 from myrtlespeech_tpu_torch.models.deep_speech_1 import DeepSpeech1
 from myrtlespeech_tpu_torch.models.deep_speech_2 import DeepSpeech2
+from myrtlespeech_tpu_torch.models.encoder_decoder import EncoderDecoder
 from myrtlespeech_tpu_torch.models.rnn_t import RNNT
+from myrtlespeech_tpu_torch.models.vgg import vgg_output_size
 from myrtlespeech_tpu_torch.ops import features as F
 from myrtlespeech_tpu_torch.ops.ctc import ctc_loss
 from myrtlespeech_tpu_torch.ops.cuda.joint_kernel import (
@@ -142,20 +144,37 @@ def preprocess_out_features(steps: Tuple[S.PreProcessStepConfig, ...]) -> int:
 
 
 def validate_model_shapes(model_cfg: S.ModelConfig, in_features: int) -> None:
-    """Raise ``ValueError``, naming the layer, when a DeepSpeech2 conv block
-    collapses the feature dim to 0 or below."""
-    if not isinstance(model_cfg, S.DeepSpeech2Config):
-        return
-    for i in range(len(model_cfg.conv_block)):
-        f = conv_block_out_features(model_cfg.conv_block[:i + 1], in_features)
-        if f <= 0:
-            c = model_cfg.conv_block[i]
-            raise ValueError(
-                f"DeepSpeech2 conv layer {i} collapses the feature dim to "
-                f"{f // c.out_channels} (kernel_feature={c.kernel_feature}, "
-                f"stride_feature={c.stride_feature}, "
-                f"padding={c.padding.name}); with {in_features} input "
-                "features every conv output dim must be > 0")
+    """Raise ``ValueError``, naming the layer, when a conv block or a VGG
+    front end collapses the feature dim to 0 or below (a conv block after a
+    VGG front end sees the VGG-flattened width)."""
+
+    def walk_conv_block(layers, f: int, where: str) -> None:
+        for i in range(len(layers)):
+            f_out = conv_block_out_features(layers[:i + 1], f)
+            if f_out <= 0:
+                c = layers[i]
+                raise ValueError(
+                    f"{where} conv layer {i} collapses the feature dim to "
+                    f"{f_out // c.out_channels} "
+                    f"(kernel_feature={c.kernel_feature}, "
+                    f"stride_feature={c.stride_feature}, "
+                    f"padding={c.padding.name}); with {in_features} input "
+                    "features every conv output dim must be > 0")
+
+    if isinstance(model_cfg, S.DeepSpeech2Config):
+        walk_conv_block(model_cfg.conv_block, in_features, "DeepSpeech2")
+    elif isinstance(model_cfg, S.EncoderDecoderConfig):
+        enc = model_cfg.encoder
+        f = in_features
+        if enc.vgg is not None:
+            f = vgg_output_size(enc.vgg, f)
+            if f <= 0:
+                raise ValueError(
+                    f"VGG frontend collapses the feature dim to {f} from "
+                    f"{in_features} input features; reduce "
+                    "use_output_from_block or increase n_mels")
+        if enc.conv_block:
+            walk_conv_block(enc.conv_block, f, "Encoder")
 
 
 def build_model(cfg: S.SpeechToTextConfig, dtype: torch.dtype,
@@ -171,9 +190,10 @@ def build_model(cfg: S.SpeechToTextConfig, dtype: torch.dtype,
     if isinstance(m, S.DeepSpeech2Config):
         return DeepSpeech2(m, out_features=vocab_size(cfg),
                            in_features=in_features, dtype=dtype)
-    raise NotImplementedError(
-        f"{type(m).__name__} is not ported yet: ROADMAP.md Queue 1 item 6 "
-        "(VGG, encoder-decoder)")
+    if isinstance(m, S.EncoderDecoderConfig):
+        return EncoderDecoder(m, out_features=vocab_size(cfg),
+                              in_features=in_features, dtype=dtype)
+    raise ValueError(f"unknown model config {type(m)}")
 
 
 def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
@@ -189,10 +209,12 @@ def _orthogonal(shape, gen: torch.Generator) -> torch.Tensor:
 def init_params(model: nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights, drawn as the JAX package's Flax initialisers
     draw them: Xavier-uniform ``w_ih`` and lookahead weights, orthogonal
-    ``w_hh``, LeCun-normal dense and conv kernels (fan-in ``in`` of ``(in,
-    out)``, ``kt * kf * in`` of a conv's ``(kt, kf, in, out)``),
-    unit-variance-over-fan-in embeddings; biases and BatchNorm scales keep
-    their construction values (zeros, ones, plus any forget-gate bias)."""
+    ``w_hh`` (``(H, G*H)``: orthonormal rows), LeCun-normal dense and conv
+    kernels (fan-in ``in`` of ``(in, out)``, ``kt * kf * in`` of a conv's
+    ``(kt, kf, in, out)``, so ``9 * in`` of a VGG conv's),
+    unit-variance-over-fan-in embeddings; biases (a GRU's ``b_hh`` too) and
+    BatchNorm scales keep their construction values (zeros, ones, plus an
+    LSTM's forget-gate bias)."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("_w_ih") or leaf == "weight":
@@ -218,13 +240,16 @@ def random_params(cfg: S.TaskConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
 
 
 def build_rnnt_decode_helpers(model: RNNT):
-    """``(predict_step, joint_fp_step, project_f, init_state_fn)``.
+    """``(predict_step, joint_fp_step, project_f, init_state_fn)``; raises
+    ``ValueError`` for a GRU or vanilla prediction net
+    (:meth:`RNNT.check_decodable`).
 
     The decoder runs in projected joint space: ``project_f`` maps the
     encoder output to the joint's first-layer space once per batch, and
     each joint evaluation inside the loop is one small product plus the
     tail.
     """
+    model.check_decodable()
     return (model.predict_step, model.joint_from_fp, model.joint_project_f,
             model.init_state)
 

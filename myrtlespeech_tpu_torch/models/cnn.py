@@ -61,11 +61,15 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, F, C_in) -> (B, T', F', C_out)``."""
+        return self.nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """The same on an NCHW image: ``(B, C_in, T, F) -> (B, C_out, T',
+        F')``."""
         w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        y = nn.functional.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, b,
-                                 stride=self.stride, padding=self.padding)
-        return y.permute(0, 2, 3, 1)
+        return nn.functional.conv2d(x.to(self.dtype), w, b,
+                                    stride=self.stride, padding=self.padding)
 
 
 class MaskedConv2d(nn.Module):

@@ -1,9 +1,9 @@
 """DeepSpeech2 acoustic model (port of ``models/deep_speech_2.py``).
 
-masked 2-D conv front end (``ConvBlock_0``) -> stacked (bi)LSTM with masked
-BatchNorm between layers (``RNN_0``; K1 forward and K2 backward on the
-card) -> optional lookahead, unidirectional only (``Lookahead_0``) ->
-per-frame MLP (``FullyConnected_0``) -> logits ``(B, T', V)``.
+masked 2-D conv front end (``ConvBlock_0``) -> stacked (bi)RNN with masked
+BatchNorm between layers (``RNN_0``; an LSTM, as the configs set it, runs
+K1 forward and K2 backward on the card) -> optional lookahead,
+unidirectional only (``Lookahead_0``) -> per-frame MLP (``FullyConnected_0``) -> logits ``(B, T', V)``.
 
 The submodules carry the Flax names, so the JAX package's parameters and
 ``batch_stats`` map one to one (``weights.py``).  ``train`` selects the

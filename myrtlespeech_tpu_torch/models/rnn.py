@@ -1,17 +1,23 @@
-"""Stacked (bi)directional LSTM (port of ``models/rnn.py:55-150``).
+"""Stacked (bi)directional RNN of any of the four cells (port of
+``models/rnn.py``).
 
 ``(B, T, F), lengths -> (B, T, H * dirs), lengths, final_states``.  Compute
 runs time-major inside; parameters are fp32 with Flax's layout and names,
-``l{i}_{fwd,bwd}_{w_ih (F, 4H), w_hh (H, 4H), b (4H,)}``; products run in
-the compute dtype.  Every LSTM layer goes through ``ops/rnn.py::lstm_scan``
-and so through K1 on the card.
+``l{i}_{fwd,bwd}_{w_ih (F, G*H), w_hh (H, G*H), b (G*H,)}`` with G = 4
+(LSTM, HARD_LSTM), 3 (GRU) or 1 (BASIC_RNN), and for a GRU also
+``l{i}_{fwd,bwd}_b_hh (3H,)``; products run in the compute dtype.  An LSTM
+layer goes through ``ops/rnn.py::lstm_scan`` and so through K1 on the card;
+a HARD_LSTM, GRU or BASIC_RNN layer through the PyTorch recurrences of
+``ops/rnn.py`` (``hard_lstm_scan``, ``gru_scan``, ``rnn_scan``), as the JAX
+package runs those cells through its ``lax.scan`` loops.  The forget-gate
+bias goes to the LSTMs' ``b`` only; every other bias starts at zero.  An
+LSTM's final state is an ``LSTMState``, the other cells' an ``h (B, H)``.
 
 With ``batch_norm`` a masked BatchNorm (``models/normalization.py``) runs
 between stacked layers, not after the last one: ``MaskedBatchNorm_{i}``
 after layer ``i``, as the JAX package names them.  At train time dropout at
 ``cfg.dropout`` follows it, also between stacked layers and not after the
-last (``ops/dropout.py``).  The GRU, vanilla and HARD_LSTM cells raise
-``NotImplementedError`` (not ported yet).
+last (``ops/dropout.py``); both follow every cell's layers alike.
 """
 
 from __future__ import annotations
@@ -26,52 +32,51 @@ from myrtlespeech_tpu_torch.models.normalization import MaskedBatchNorm
 from myrtlespeech_tpu_torch.ops import rnn as rnn_ops
 from myrtlespeech_tpu_torch.ops.dropout import dropout
 
-_NOT_PORTED = {
-    RNNType.GRU: "ROADMAP.md Queue 1 item 6 (GRU and vanilla cells)",
-    RNNType.BASIC_RNN: "ROADMAP.md Queue 1 item 6 (GRU and vanilla cells)",
-    RNNType.HARD_LSTM: "ROADMAP.md Queue 1 item 6 (HARD_LSTM cell)",
-}
+GATES = {RNNType.LSTM: 4, RNNType.GRU: 3, RNNType.BASIC_RNN: 1,
+         RNNType.HARD_LSTM: 4}
 
 
 class RNN(nn.Module):
     def __init__(self, cfg: RNNConfig, in_features: int,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if cfg.rnn_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.rnn_type.name} is not ported yet: "
-                f"{_NOT_PORTED[cfg.rnn_type]}")
         self.cfg = cfg
         self.dtype = dtype
         H = cfg.hidden_size
+        G = GATES[cfg.rnn_type]
+        lstm = cfg.rnn_type in (RNNType.LSTM, RNNType.HARD_LSTM)
         dirs = 2 if cfg.bidirectional else 1
         for layer in range(cfg.num_layers):
             f_in = in_features if layer == 0 else H * dirs
             for d in range(dirs):
                 name = f"l{layer}_{'bwd' if d else 'fwd'}"
                 self.register_parameter(
-                    f"{name}_w_ih", nn.Parameter(torch.empty(f_in, 4 * H)))
+                    f"{name}_w_ih", nn.Parameter(torch.empty(f_in, G * H)))
                 self.register_parameter(
-                    f"{name}_w_hh", nn.Parameter(torch.empty(H, 4 * H)))
+                    f"{name}_w_hh", nn.Parameter(torch.empty(H, G * H)))
                 if cfg.bias:
-                    b = torch.zeros(4 * H)
-                    if cfg.forget_gate_bias is not None:
+                    b = torch.zeros(G * H)
+                    if lstm and cfg.forget_gate_bias is not None:
                         b[H:2 * H] = cfg.forget_gate_bias
                     self.register_parameter(f"{name}_b", nn.Parameter(b))
+                    if cfg.rnn_type is RNNType.GRU:
+                        self.register_parameter(
+                            f"{name}_b_hh", nn.Parameter(torch.zeros(G * H)))
             if cfg.batch_norm and layer < cfg.num_layers - 1:
                 self.add_module(f"MaskedBatchNorm_{layer}",
                                 MaskedBatchNorm(H * dirs, dtype=dtype))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor,
                 train: bool = False,
-                initial_states: Optional[List[List[rnn_ops.LSTMState]]] = None,
+                initial_states: Optional[List[list]] = None,
                 gen: Optional[torch.Generator] = None):
         """Run the stack.
 
         ``initial_states``: optional per-layer list of per-direction states
-        (streaming decode); zeros if None.  ``gen`` draws the dropout masks
-        at train time.  Returns ``(outputs (B, T, H*dirs), lengths,
-        final_states)``, with ``final_states`` shaped like
+        (streaming decode: an ``LSTMState`` for an LSTM or hard LSTM, an
+        ``h (B, H)`` for a GRU or vanilla RNN); zeros if None.  ``gen``
+        draws the dropout masks at train time.  Returns ``(outputs (B, T,
+        H*dirs), lengths, final_states)``, with ``final_states`` shaped like
         ``initial_states``.
         """
         c = self.cfg
@@ -84,11 +89,7 @@ class RNN(nn.Module):
                 name = f"l{layer}_{'bwd' if d else 'fwd'}"
                 init = None if initial_states is None \
                     else initial_states[layer][d]
-                out, st = rnn_ops.lstm_scan(
-                    y, lengths, getattr(self, f"{name}_w_ih"),
-                    getattr(self, f"{name}_w_hh"),
-                    getattr(self, f"{name}_b") if c.bias else None,
-                    h0c0=init, reverse=bool(d), compute_dtype=self.dtype)
+                out, st = self._scan(name, y, lengths, init, bool(d))
                 outs.append(out)
                 layer_states.append(st)
             final_states.append(layer_states)
@@ -99,3 +100,23 @@ class RNN(nn.Module):
             if layer < c.num_layers - 1:
                 y = dropout(y, c.dropout, train, gen)
         return y.transpose(0, 1), lengths, final_states
+
+    def _scan(self, name: str, y: torch.Tensor, lengths: torch.Tensor,
+              init, reverse: bool):
+        """One direction of one layer through its cell's recurrence."""
+        c = self.cfg
+        w_ih = getattr(self, f"{name}_w_ih")
+        w_hh = getattr(self, f"{name}_w_hh")
+        b = getattr(self, f"{name}_b") if c.bias else None
+        kw = dict(reverse=reverse, compute_dtype=self.dtype)
+        if c.rnn_type is RNNType.LSTM:
+            return rnn_ops.lstm_scan(y, lengths, w_ih, w_hh, b, h0c0=init,
+                                     **kw)
+        if c.rnn_type is RNNType.HARD_LSTM:
+            return rnn_ops.hard_lstm_scan(y, lengths, w_ih, w_hh, b,
+                                          h0c0=init, **kw)
+        if c.rnn_type is RNNType.GRU:
+            b_hh = getattr(self, f"{name}_b_hh") if c.bias else None
+            return rnn_ops.gru_scan(y, lengths, w_ih, w_hh, b, b_hh, h0=init,
+                                    **kw)
+        return rnn_ops.rnn_scan(y, lengths, w_ih, w_hh, b, h0=init, **kw)

@@ -1,9 +1,10 @@
 """RNN transducer (port of ``models/rnn_t.py``).
 
-LSTM encoder with a stride-``r`` time reduction between its two stacks,
-embedding + LSTM prediction net, and the factored joint
-``act(f) @ W_f + act(g) @ W_g + b``.  ``encode``, ``predict_step``,
-``joint_project_f`` and ``joint_from_fp`` are separate methods because the
+RNN encoder with a stride-``r`` time reduction between its two stacks,
+embedding + RNN prediction net (any cell of ``models/rnn.py``; the decoders
+take an LSTM or hard-LSTM prediction net only, as the JAX package's do), and
+the factored joint ``act(f) @ W_f + act(g) @ W_g + b``.  ``encode``,
+``predict_step``, ``joint_project_f`` and ``joint_from_fp`` are separate methods because the
 decoders drive them separately; ``predict`` (full label sequences),
 ``joint`` (the full ``(B, T', U+1, V)`` logits) and ``forward`` are the
 training path, and ``joint_project`` feeds the joint-tail kernels (K5, K6).
@@ -185,8 +186,26 @@ class RNNT(nn.Module):
         g, _, _ = self.pred_rnn(emb, label_lens + 1, train, gen=gen)
         return g
 
+    def check_decodable(self) -> None:
+        """Raise ``ValueError`` unless the prediction net is an LSTM or a
+        hard LSTM.
+
+        The decoders carry the prediction net's state as ``LSTMState``s, as
+        the JAX package's do (its ``build_rnnt_decode_helpers`` builds them
+        for every cell, and its GRU and vanilla scans then fail on them), so
+        an RNN-T with a GRU or vanilla prediction net trains but does not
+        decode."""
+        t = self.cfg.prediction.rnn.rnn_type
+        if t not in (S.RNNType.LSTM, S.RNNType.HARD_LSTM):
+            raise ValueError(
+                f"the RNN-T decoders need an LSTM or hard-LSTM prediction "
+                f"net, not {t.name}: they carry its state as LSTMState (h, "
+                "c), as the JAX package's decoders do, which cannot decode "
+                "one either")
+
     def init_state(self, n: int, device) -> List[List[LSTMState]]:
-        """Zero prediction-net state for a batch of ``n``."""
+        """Zero prediction-net state for a batch of ``n`` (an LSTM's or a
+        hard LSTM's: see :meth:`check_decodable`)."""
         c = self.cfg.prediction.rnn
         dirs = 2 if c.bidirectional else 1
         return [[LSTMState(h=torch.zeros((n, c.hidden_size), device=device),

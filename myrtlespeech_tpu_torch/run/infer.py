@@ -5,13 +5,15 @@ Port of the decode half of ``myrtlespeech_tpu/run/train.py::eval_step_body``
 
 - an RNN-T: features -> ``RNNT.encode`` -> ``joint_project_f`` -> the
   config's greedy or beam decoder (``decoding/rnnt_{greedy,beam}.py``);
-- a CTC model (DeepSpeech1 or DeepSpeech2): features -> the model's
-  logits -> the config's CTC decoder (greedy, or prefix beam search with
-  its LMs).
+- a CTC model (DeepSpeech1, DeepSpeech2 or an encoder-decoder): features
+  -> the model's logits -> the config's CTC decoder (greedy, or prefix beam
+  search with its LMs).
 
-Every LSTM layer runs through K1 (``ops/cuda/lstm_kernel.py``) on the card;
-the decoders are PyTorch on the card, and the only copy to the host is the
-transcript's at the end.
+Every LSTM layer runs through K1 (``ops/cuda/lstm_kernel.py``) on the card,
+a GRU, vanilla or hard-LSTM layer through its PyTorch recurrence
+(``ops/rnn.py``); the decoders are PyTorch on the card, and the only copy
+to the host is the transcript's at the end.  An RNN-T whose prediction net
+is a GRU or a vanilla RNN has no decoder (``RNNT.check_decodable``).
 
     python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_en --batch 32 --seconds 5
     python -m myrtlespeech_tpu_torch.run.infer --config rnn_t_960_beam --batch 32 --seconds 5

@@ -12,16 +12,19 @@ place:
     preprocess (SpecAugment at train time) -> RNNT.encode -> RNNT.predict
     -> joint path -> lattice (K3, K4) -> backward -> clip, L2, Adam
 
-or, for a CTC model (DeepSpeech1 or DeepSpeech2),
+or, for a CTC model (DeepSpeech1, DeepSpeech2 or an encoder-decoder),
 
     preprocess -> DeepSpeech2 (conv block, BiLSTMs with masked BatchNorm,
-    FC) or DeepSpeech1 (3 FC, BiLSTM, FC; MFCC and context frames in the
-    preprocess) -> CTC lattice (K7, K8) -> backward -> clip, L2, SGD or
-    Adam
+    FC), DeepSpeech1 (3 FC, BiLSTM, FC; MFCC and context frames in the
+    preprocess) or EncoderDecoder (VGG, conv block, RNN of any cell, FC)
+    -> CTC lattice (K7, K8) -> backward -> clip, L2, SGD or Adam
 
-Every LSTM layer runs K1 forward and K2 backward on the card.  BatchNorm
-takes the batch's statistics and moves its running ones in a train step,
-and uses the running ones in the eval step.  The transducer's joint path is
+Every LSTM layer runs K1 forward and K2 backward on the card; a GRU,
+vanilla or hard-LSTM layer (in any model that lets a config put one) runs
+its PyTorch recurrence (``ops/rnn.py``), forward and backward.  Every
+BatchNorm (the masked ones and VGG's plain one) takes the batch's
+statistics and moves its running ones in a train step, and uses the
+running ones in the eval step.  The transducer's joint path is
 chosen per batch (:func:`_select_joint_path`): the full joint and blank/emit
 front when the memory planner projects that it fits; else the joint tail
 in K5 and K6, which never builds the ``(B, T', U+1, .)`` tensors; or the

@@ -90,14 +90,15 @@ def test_port_imports_no_jax():
         "          'configs.rnn_t_960_beam', 'ops.dropout',\n"
         "          'configs.synthetic_hard_rnnt_preddrop',\n"
         "          'configs.synthetic_hard_ctc',\n"
-        "          'configs.synthetic_hard_rnnt_ft'):\n"
+        "          'configs.synthetic_hard_rnnt_ft', 'models.vgg',\n"
+        "          'models.encoder_decoder'):\n"
         "    assert 'myrtlespeech_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('myrtlespeech_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 62  # every module was imported
+    assert int(out.stdout) >= 64  # every module was imported
 
 
 def test_chip_smoke_imports_no_jax():
