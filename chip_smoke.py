@@ -249,6 +249,20 @@ seconds since the start); any failure exits non-zero:
              ``kernels`` line.
     ``fit_phases(dev)`` runs the run-loop phases alone (after
     ``phase_build()``).
+    Then the distributed phases (``dist_phases``), ``rnn_t_960_multihost``
+    at full width on the synthetic corpus, its global batch cut to 16 x
+    <= 2.93 s, through the CLI in subprocesses, each held against a
+    one-process run of the same batches (each step's loss, gradient norm,
+    the eval mean loss and WER; ``DIST_TOL``), every rank K1-K4 7/7/1/1 a step on the
+    persistent route, K5-K8 none, no plain version:
+             ``dist_tp2``: two gloo ranks on the one card, data 1 x model 2
+             (column shards, ``W_hh`` gathered for K1/K2); rank 0's step-1
+             K1-K4 calls against their plain versions (``--replay-step``).
+             ``dist_dp2``: two gloo ranks, data 2 (a chunk whose fill rows
+             fall on rank 1).  ``dist_nccl1``: one NCCL rank (world size
+             1), one step; beside it, two NCCL ranks on the one card must
+             both fail with the port's error.  Step ms are those of ranks
+             time-sharing one card, not a scaling figure.
 
 Then a ``kernels`` line (one entry per ported kernel: ``ms`` is the kernel's
 device time on its main path, traced; ``plain_ms`` and ``library_ms`` the
@@ -261,8 +275,11 @@ K1's also ds2_serve, ds1_serve, rnnt_beam_serve, with its launches and
 device ms by route, and trained_beam, with its launches by route and
 errors; K7 and K8 ds1 and encdec; K1, K2, K7 and K8 fit_ds1, and K1, K2,
 K3, K4, K7 and K8 the hard-corpus fits' paths, fit_preddrop, fit_hard_ctc
-and ft_hard_rnnt, with their errors against the plain versions), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every main
+and ft_hard_rnnt, with their errors against the plain versions; K1-K4
+dist_tp2, rank 0's), the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``.  Every model is built with ``init_params`` memoised on
+disk for the run (``install_init_cache``: the same weights, drawn once a
+config and seed, subprocesses included).  Every main
 path but the RNN-T beam's also asserts that K1's and K2's per-step route
 launched no time; DeepSpeech1's also that every K1 and K2 launch was the
 wide route's.
@@ -275,6 +292,7 @@ import collections
 import contextlib
 import functools
 import gc
+import hashlib
 import json
 import os
 import statistics
@@ -1550,7 +1568,7 @@ def stage_ms(tr, wav, lens, runs: int = 3, model_key: str = "encoder_ms"):
     return {k: statistics.median(v) for k, v in out.items()}
 
 
-def record_many(targets, fn, snapshot: bool = False):
+def record_many(targets, fn, snapshot: bool = False, counted: bool = False):
     """Run ``fn()`` with each ``module.name`` of ``targets`` (``{key:
     (module, name)}``, kernel wrappers that their callers look up at call
     time) recording its arguments; returns ``{key: [args, ...]}`` in call
@@ -1559,9 +1577,12 @@ def record_many(targets, fn, snapshot: bool = False):
     is recorded as a detached copy, as it was at the call: a train step's
     optimizer later writes its weights in place.  A wrapper's own count,
     which it keeps under its module name, lands on the recorder during the
-    run: a recorded run is never a counted one."""
+    run: a recorded run is not a counted one, unless ``counted``, which adds
+    the recorders' counts to the wrappers' afterwards (a step of a run whose
+    launches are read)."""
     calls = {key: [] for key in targets}
     real = {key: getattr(m, n) for key, (m, n) in targets.items()}
+    recorders = {}
     for key, (m, n) in targets.items():
         def recording(*args, _key=key, **kwargs):
             rec = args + tuple(kwargs.values())
@@ -1573,12 +1594,15 @@ def record_many(targets, fn, snapshot: bool = False):
             return real[_key](*args, **kwargs)
 
         recording.launches = 0
+        recorders[key] = recording
         setattr(m, n, recording)
     try:
         fn()
     finally:
         for key, (m, n) in targets.items():
             setattr(m, n, real[key])
+            if counted:
+                real[key].launches += recorders[key].launches
     return calls
 
 
@@ -4037,13 +4061,66 @@ def guarded_cli(argv) -> int:
     """``run/cli.py``'s ``main(argv)`` with the plain versions counted
     (``--guarded-cli``: the fit phases run the CLI so, in a subprocess) and
     the dropout masks tallied (``MaskTally``).  Its last line is
-    ``{"plain_calls": {...}, "dropout": {...}}``."""
-    from myrtlespeech_tpu_torch.run import cli
+    ``{"plain_calls": {...}, "dropout": {...}, "launches": {...},
+    "train_step_launches": {...}, "peak_bytes": N}``: the kernels' launches
+    over the whole run and inside its train steps (K1's and K2's per-step
+    and wide routes apart: ``k1_step``, ``k1_wide``...), and the card's peak
+    memory.  ``--replay-step N`` before the CLI's arguments
+    records every K1-K4 call of train step N (from 0) as it is made (the
+    step still counted) and, after the CLI, outside the count, holds each
+    kernel against its plain version on them (``step_replays``; the
+    line's ``replays``)."""
+    from myrtlespeech_tpu_torch.run import cli, train
 
-    with MaskTally() as tally, _plain_guard() as guard:
-        rc = cli.main(argv)
-    print(json.dumps({"plain_calls": dict(guard.calls),
-                      "dropout": tally.summary()}), flush=True)
+    replay = None
+    if argv[:1] == ["--replay-step"]:
+        replay, argv = int(argv[1]), argv[2:]
+    recorded = {}
+    in_steps = collections.Counter()
+    real_make = train.make_train_step
+
+    def counts():
+        return dict(_read_counts(),
+                    **{f"{k}_wide": n for k, n in wide_counts().items()})
+
+    def make_counted_step(task):
+        step, n = real_make(task), [0]
+
+        def counted_step(state, batch):
+            n[0] += 1
+            before, out = counts(), []
+            if n[0] - 1 != replay:
+                out.append(step(state, batch))
+            else:
+                recorded.update(record_many(
+                    _replay_targets(DIST_STEP),
+                    lambda: out.append(step(state, batch)), snapshot=True,
+                    counted=True))
+            in_steps.update({k: v - before[k] for k, v in counts().items()})
+            return out[0]
+
+        return counted_step
+
+    train.make_train_step = make_counted_step
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with MaskTally() as tally, _plain_guard() as guard:
+            rc = cli.main(argv)
+    finally:
+        train.make_train_step = real_make
+    last = {"plain_calls": dict(guard.calls), "dropout": tally.summary(),
+            "launches": _read_counts(), "train_step_launches": {
+                k: in_steps[k] for k in counts()},
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    if replay is not None:
+        if not recorded:
+            raise AssertionError(f"train step {replay} never ran")
+        last["replays"] = step_replays(
+            recorded, DIST_STEP, f"step {replay} of the CLI",
+            torch.device("cuda", torch.cuda.current_device()),
+            bidirectional=False)
+    print(json.dumps(last), flush=True)
     return rc
 
 
@@ -4364,8 +4441,8 @@ def phase_fit_rnnt(dev):
     paths = []
     select = train._select_joint_path
 
-    def recording(task_, f, g, backward):
-        fused, chunk = select(task_, f, g, backward)
+    def recording(task_, f, g, backward, model_size=1):
+        fused, chunk = select(task_, f, g, backward, model_size)
         name = ("full joint" if fused is None else
                 "joint tail" if fused is task_.joint_tail_loss else
                 f"chunked ({chunk})")
@@ -4557,9 +4634,20 @@ def hard_step_replays(task, state, dev, label: str, want: dict,
     step's lattice (``lattice_errors``), K7 and K8 (``ctc_errors`` and
     ``ctc_chain_errors``), at the tolerances of the other phases.  Returns
     each kernel's path figures for the ``kernels`` line."""
+    from myrtlespeech_tpu_torch.run import train
+
+    batch = _longest_train_batch(task, dev, n_batches)
+    step = train.make_train_step(task)
+    calls = record_many(_replay_targets(want), lambda: step(state, batch),
+                        snapshot=True)
+    return step_replays(calls, want, label, dev,
+                        bidirectional=not task.transducer)
+
+
+def _replay_targets(want: dict) -> dict:
+    """The wrappers of the kernels that ``want`` (a step's calls) names."""
     from myrtlespeech_tpu_torch.ops.cuda import (ctc_kernel, lstm_kernel,
                                                  rnnt_kernel)
-    from myrtlespeech_tpu_torch.run import train
 
     wrappers = {"k1": (lstm_kernel, "lstm_fwd"),
                 "k2": (lstm_kernel, "lstm_bwd"),
@@ -4567,11 +4655,18 @@ def hard_step_replays(task, state, dev, label: str, want: dict,
                 "k4": (rnnt_kernel, "rnnt_lattice_bwd"),
                 "k7": (ctc_kernel, "ctc_lattice_fwd"),
                 "k8": (ctc_kernel, "ctc_lattice_bwd")}
-    targets = {k: w for k, w in wrappers.items() if want[k]}
-    batch = _longest_train_batch(task, dev, n_batches)
-    step = train.make_train_step(task)
-    calls = record_many(targets, lambda: step(state, batch), snapshot=True)
+    return {k: w for k, w in wrappers.items() if want.get(k)}
+
+
+def step_replays(calls: dict, want: dict, label: str, dev,
+                 bidirectional: bool) -> dict:
+    """One recorded train step's kernel calls (``record_many`` of
+    ``_replay_targets(want)``, snapshots), as many as ``want`` says, each
+    kernel held against its plain version as ``hard_step_replays`` says."""
+    from myrtlespeech_tpu_torch.ops.cuda import ctc_kernel, rnnt_kernel
+
     torch.cuda.synchronize()
+    targets = _replay_targets(want)
     made = {k: len(c) for k, c in calls.items()}
     if made != {k: want[k] for k in targets}:
         raise AssertionError(f"{label}: the recorded step made {made} "
@@ -4579,8 +4674,7 @@ def hard_step_replays(task, state, dev, label: str, want: dict,
     shapes = {"k1": sorted({tuple(a[0].shape) for a in calls["k1"]}),
               "k2": sorted({tuple(a[4].shape) for a in calls["k2"]})}
     lstm = lstm_replays(calls.pop("k1"), calls.pop("k2"), label, dev,
-                        plain_per_shape=True,
-                        bidirectional=not task.transducer)
+                        plain_per_shape=True, bidirectional=bidirectional)
     out = {k: dict(lstm[k], step_calls=want[k],
                    shapes_checked=[list(sh) for sh in shapes[k]])
            for k in ("k1", "k2")}
@@ -5376,6 +5470,261 @@ def phase_cells(dev):
              "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms})
 
 
+# The distributed phases: ``rnn_t_960_multihost`` at full width (5 encoder
+# LSTM-1024 layers, 2 prediction LSTM-320, joint 512, V=29) on the synthetic
+# corpus, its global batch of 256 x 16.7 s with the full joint cut to
+# DIST_BATCH (far over one card otherwise): DIST_TRAIN_LEN train utterances
+# (3.85 s the longest), of which DIST_STEPS batches train, and one eval
+# batch of DIST_EVAL_LEN decoded by the config's beam (W=16).  Every run is
+# the CLI in subprocesses under ``--guarded-cli``; two ranks share the one
+# card over gloo.  A step launches K1 and K2 once a layer, K3 and K4 once
+# (the full joint fits); the joint tail (K5, K6) is off under TP, as the
+# JAX package's TP guard turns its kernel off.
+DIST_BATCH, DIST_TRAIN_LEN, DIST_EVAL_LEN, DIST_STEPS = 16, 60, 16, 3
+DIST_STEP = {"k1": 7, "k2": 7, "k3": 1, "k4": 1, "k5": 0, "k6": 0, "k7": 0,
+             "k8": 0}
+# Against the one-process run of the same batches: each step's loss and
+# the eval mean loss (relative), the gradient norm (relative,
+# DS1_PLAIN_TOL's precedent: bf16 products summed in another order over the
+# column shards) and the WER.
+DIST_TOL = {"loss": 5e-3, "grad_norm": 2e-2, "wer": 0.01}
+DIST_TIMEOUT_S = 300
+
+
+def run_cli_ranks(rank_args, timeout: float = DIST_TIMEOUT_S):
+    """One CLI subprocess a rank under ``guarded_cli``, all started at
+    once: ``([(reports, last), ...] by rank, wall_s)``.  A rank that exits
+    non-zero or outlives ``timeout`` fails the phase (every process started
+    here is ended), as does a plain version on any rank."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--guarded-cli", *a],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a in rank_args]
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {len(procs)} exited "
+                                 f"{p.returncode}: {err[-4000:]}")
+        head, last = out.rstrip().rsplit("\n", 1)
+        last = json.loads(last)
+        if last["plain_calls"]:
+            raise AssertionError(f"rank {r}: plain versions ran: "
+                                 f"{last['plain_calls']}")
+        head = "\n" + head
+        ranks.append((json.loads(head[head.rindex("\n{\n") + 1:]), last))
+    return ranks, wall_s
+
+
+def _dist_config(workdir: str):
+    """The cut ``rnn_t_960_multihost`` (DIST_*), saved as JSON, and its
+    first DIST_STEPS train batches' real rows: ``(path, n_real)``."""
+    from myrtlespeech_tpu_torch.builders.build import build_task
+    from myrtlespeech_tpu_torch.config import schema as S
+    from myrtlespeech_tpu_torch.config.serde import save_json
+    from myrtlespeech_tpu_torch.run.infer import load_config
+
+    cfg = _synthetic_datasets(load_config("rnn_t_960_multihost"),
+                              DIST_TRAIN_LEN, DIST_EVAL_LEN)
+    cfg = S.replace(cfg, train_config=S.replace(cfg.train_config,
+                                                batch_size=DIST_BATCH))
+    path = os.path.join(workdir, "rnn_t_960_multihost.json")
+    save_json(cfg, path)
+    batches = _epoch0_batches(build_task(cfg), DIST_STEPS)
+    return path, [int(b["n_real"]) for b in batches], \
+        max(b["wav"].shape[1] for b in batches) / 16000
+
+
+def _dist_rank_args(common, r: int, world: int, init: str, model: int,
+                    backend: str = "gloo"):
+    return [*common, "--mesh_model", str(model), "--device", "cuda:0",
+            "--dist_backend", backend, "--coordinator", init,
+            "--num_processes", str(world), "--process_id", str(r)]
+
+
+def _train_rows(log: str):
+    import csv
+
+    with open(os.path.join(log, "metrics.csv"), newline="") as fh:
+        return [r for r in csv.DictReader(fh) if r["stage"] == "train"]
+
+
+def _dist_check(label: str, ranks, rows, ref, ref_rows, steps: int,
+                wall_s: float, check_eval: bool = True) -> dict:
+    """Each rank's launches (K1-K4 DIST_STEP a step, K5-K8 none) and the
+    run's losses and gradient norms against the one-process run's, and with
+    ``check_eval`` (the same steps before the eval) its eval mean loss,
+    relative, and WER (DIST_TOL); the phase's figures."""
+    want = {k: n * steps for k, n in DIST_STEP.items()}
+    per_rank = []
+    for r, (rep, last) in enumerate(ranks):
+        steps_n = last["train_step_launches"]
+        routes = {k: {"persistent": steps_n[k] - steps_n[f"{k}_step"]
+                      - steps_n[f"{k}_wide"], "per_step": steps_n[f"{k}_step"],
+                      "wide": steps_n[f"{k}_wide"]} for k in ("k1", "k2")}
+        if rep["train_launches"] != want \
+                or any(r_["per_step"] or r_["wide"] for r_ in routes.values()):
+            raise AssertionError(f"{label}: rank {r} launched "
+                                 f"{rep['train_launches']} ({routes}), "
+                                 f"expected {want}, persistent K1/K2")
+        per_rank.append({"rank": r, "train_launches": rep["train_launches"],
+                         "k1_k2_routes": routes,
+                         "eval_launches": rep["eval_launches"],
+                         "step_ms": rep["train_step_ms"],
+                         "eval_step_ms": rep["eval_step_ms"],
+                         "peak_bytes": last["peak_bytes"], "plain_calls": 0})
+    rel = {k: [abs(float(a[k]) - float(b[k])) / abs(float(b[k]))
+               for a, b in zip(rows, ref_rows)]
+           for k in ("loss", "grad_norm")}
+    reports = ranks[0][0]
+    wer_diff = eval_rel = None
+    if check_eval:
+        wer_diff = abs(reports["wer"] - ref["wer"])
+        # The eval model (gathered from the shards under TP) moves the
+        # eval loss where random weights leave the WER at 1.0; every rank's.
+        eval_rel = max(abs(rep["eval_mean_loss"] - ref["eval_mean_loss"])
+                       / abs(ref["eval_mean_loss"]) for rep, _ in ranks)
+    if len(rows) != steps or max(rel["loss"]) > DIST_TOL["loss"] \
+            or max(rel["grad_norm"]) > DIST_TOL["grad_norm"] \
+            or (check_eval and (eval_rel > DIST_TOL["loss"]
+                                or wer_diff > DIST_TOL["wer"])):
+        raise AssertionError(
+            f"{label} against one process: {len(rows)} steps, rel {rel}, "
+            f"eval loss {reports.get('eval_mean_loss')} against "
+            f"{ref.get('eval_mean_loss')}, WER {reports.get('wer')} against "
+            f"{ref.get('wer')}")
+    for r, (rep, _) in enumerate(ranks[1:], 1):
+        if rep["train_mean_loss"] != reports["train_mean_loss"] \
+                or (check_eval and rep["wer"] != reports["wer"]):
+            raise AssertionError(f"{label}: rank {r}'s reports differ from "
+                                 f"rank 0's")
+    return dict(steps=steps, losses=[float(r["loss"]) for r in rows],
+                grad_norms=[float(r["grad_norm"]) for r in rows],
+                loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
+                wer=reports.get("wer"), wer_one_process=ref.get("wer"),
+                wer_diff=wer_diff, train_mean_loss=reports["train_mean_loss"],
+                eval_mean_loss=reports.get("eval_mean_loss"),
+                eval_mean_loss_one_process=ref.get("eval_mean_loss"),
+                eval_loss_rel_err=eval_rel, ranks=per_rank,
+                wall_s=wall_s)
+
+
+def start_nccl_refusal(path: str, workdir: str):
+    """Start two NCCL ranks of the CLI on the one card (see
+    ``nccl_refuses_one_card``)."""
+    init = "file://" + os.path.join(workdir, "nccl2_rendezvous")
+    return [subprocess.Popen(
+        [sys.executable, "-m", "myrtlespeech_tpu_torch.run.cli",
+         *_dist_rank_args(["--config", path, "--epochs", "1",
+                           "--max_batches", "1"], r, 2, init, 1,
+                          backend="nccl")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+
+
+def nccl_refuses_one_card(procs) -> str:
+    """``start_nccl_refusal``'s two ranks: both must exit non-zero with the
+    port's own error, before any step.  Returns the error."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    want = "several ranks drive one card"
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode == 0 or want not in err or '"train_' in out:
+            raise AssertionError(f"two NCCL ranks on one card: rank {r} "
+                                 f"exited {p.returncode}: {err[-2000:]}")
+    return next(line for line in outs[0][1].splitlines() if want in line)
+
+
+def dist_phases(workdir: str) -> dict:
+    """``dist_tp2``, ``dist_dp2`` and ``dist_nccl1``: the cut
+    ``rnn_t_960_multihost`` through the CLI on two ranks sharing the card
+    over gloo, at TP=2 (data 1 x model 2) and DP=2 (data 2, a chunk whose
+    fill rows fall on rank 1), and on one rank over NCCL (world size 1,
+    one step), each held against a one-process run of the same batches
+    (``--mesh_model 1``): every rank's launches (K1-K4, none of K5-K8), no
+    plain version on any rank, each step's loss and gradient norm (and for
+    TP=2 and DP=2 the eval mean loss and WER) within DIST_TOL; two NCCL ranks on the one card must both fail with
+    the port's error.  TP=2's rank 0 also holds its step 1's K1-K4 calls
+    against their plain versions; those figures are returned for the
+    ``kernels`` line.  Step ms are those of two ranks time-sharing one
+    card: not a scaling figure."""
+    path, n_real, longest_s = _dist_config(workdir)
+    if not any(DIST_BATCH // 2 <= n < DIST_BATCH for n in n_real):
+        raise AssertionError(f"no chunk of the first {DIST_STEPS} has its "
+                             f"fill rows on rank 1 only: n_real {n_real}")
+    common = ["--config", path, "--epochs", "1", "--max_batches",
+              str(DIST_STEPS)]
+    log = os.path.join(workdir, "one")
+    [(ref, _)], ref_wall = run_cli_ranks(
+        [[*common, "--mesh_model", "1", "--log_dir", log]])
+    ref_rows = _train_rows(log)
+    cut = dict(config="rnn_t_960_multihost", datasets="synthetic",
+               global_batch=DIST_BATCH, longest_batch_s=longest_s,
+               n_real=n_real, one_process_wall_s=ref_wall,
+               one_process_step_ms=ref["train_step_ms"],
+               step_ms_note="two ranks time-sharing one card")
+
+    log = os.path.join(workdir, "tp2")
+    init = "file://" + os.path.join(workdir, "tp2_rendezvous")
+    ranks, wall = run_cli_ranks(
+        [(["--replay-step", "1"] if r == 0 else [])
+         + _dist_rank_args([*common, "--log_dir", log], r, 2, init, 2)
+         for r in range(2)])
+    fields = _dist_check("dist_tp2", ranks, _train_rows(log), ref, ref_rows,
+                         DIST_STEPS, wall)
+    replays = ranks[0][1]["replays"]
+    emit("dist_tp2", mesh={"data": 1, "model": 2}, backend="gloo", **cut,
+         **fields, replays={k: v["max_abs_err"] for k, v in replays.items()})
+
+    log = os.path.join(workdir, "dp2")
+    init = "file://" + os.path.join(workdir, "dp2_rendezvous")
+    ranks, wall = run_cli_ranks(
+        [_dist_rank_args([*common, "--log_dir", log], r, 2, init, 1)
+         for r in range(2)])
+    emit("dist_dp2", mesh={"data": 2, "model": 1}, backend="gloo", **cut,
+         **_dist_check("dist_dp2", ranks, _train_rows(log), ref, ref_rows,
+                       DIST_STEPS, wall))
+
+    log = os.path.join(workdir, "nccl1")
+    init = "file://" + os.path.join(workdir, "nccl1_rendezvous")
+    # The refusal's two ranks stop at their init, beside this run.
+    refusal = start_nccl_refusal(path, workdir)
+    try:
+        ranks, wall = run_cli_ranks([_dist_rank_args(
+            ["--config", path, "--epochs", "1", "--max_batches", "1",
+             "--no_decode", "--log_dir", log], 0, 1, init, 1,
+            backend="nccl")])
+        refused = nccl_refuses_one_card(refusal)
+    finally:
+        for p in refusal:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    emit("dist_nccl1", mesh={"data": 1, "model": 1}, backend="nccl",
+         **_dist_check("dist_nccl1", ranks, _train_rows(log), ref,
+                       ref_rows[:1], 1, wall, check_eval=False),
+         two_ranks_one_card=refused)
+    return {k: dict(v, step_calls=DIST_STEP[k]) for k, v in replays.items()}
+
+
 def fit_phases(dev) -> dict:
     """The run-loop phases; returns the DS1 and hard-corpus fits' kernel
     figures by path and kernel (``hard_step_replays``)."""
@@ -5390,13 +5739,68 @@ def fit_phases(dev) -> dict:
                 "ft_hard_rnnt": phase_ft_hard_rnnt(dev, workdir)}
 
 
+# The environment variable naming the directory of ``install_init_cache``,
+# which the script's CLI subprocesses (``--guarded-cli``) share.
+INIT_CACHE_ENV = "SMOKE_INIT_CACHE"
+
+
+def install_init_cache(directory: str) -> None:
+    """Memoise ``builders.build.init_params`` on disk in ``directory``, by
+    its whole input: the model's parameter names and shapes and the
+    generator's state.  A model of one config and seed is then drawn once
+    in the script, its CLI subprocesses included, and later builds load the
+    very tensors that ``init_params`` drew (and the generator's state after
+    them), the parameters that it leaves at their construction values (a
+    bias, a forget-gate bias) untouched: only the host's time changes.  ``init_params``'s QR of each
+    ``w_hh`` takes seconds on the host, and the phases build the same
+    models from the same seeds many times."""
+    from myrtlespeech_tpu_torch.builders import build
+    from myrtlespeech_tpu_torch.run import train
+
+    real = build.init_params
+
+    @torch.no_grad()
+    def cached_init_params(model, gen):
+        key = hashlib.sha256(
+            repr([(n, tuple(p.shape)) for n, p in model.named_parameters()])
+            .encode() + gen.get_state().numpy().tobytes()).hexdigest()
+        path = os.path.join(directory, f"{key}.pt")
+        params = dict(model.named_parameters())
+        if os.path.exists(path):
+            saved = torch.load(path, weights_only=True)
+            for name, value in saved["params"].items():
+                params[name].copy_(value)
+            gen.set_state(saved["gen"])
+            return
+        before = {n: p.clone() for n, p in params.items()}
+        real(model, gen)
+        drawn = {n: p.clone() for n, p in params.items()
+                 if not torch.equal(p, before[n])}
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"params": drawn, "gen": gen.get_state()}, tmp)
+        os.replace(tmp, path)
+
+    build.init_params = train.init_params = cached_init_params
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA card (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
     if argv[:1] == ["--guarded-cli"]:
+        if os.environ.get(INIT_CACHE_ENV):
+            install_init_cache(os.environ[INIT_CACHE_ENV])
         return guarded_cli(argv[1:])
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ[INIT_CACHE_ENV] = cache
+        install_init_cache(cache)
+        return run_phases()
+
+
+def run_phases() -> int:
+    """Every phase in order, then the ``kernels`` line, the card's line and
+    the result line."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5442,7 +5846,10 @@ def main(argv) -> int:
     # version, join each kernel's paths and its largest error.
     entries = dict(zip(("k1", "k2", "k3", "k4", "k7", "k8"),
                        [k1, *k234, *k78]))
-    for path, figures in fit_phases(dev).items():
+    figures_by_path = fit_phases(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        figures_by_path["dist_tp2"] = dist_phases(workdir)
+    for path, figures in figures_by_path.items():
         for kernel, fig in figures.items():
             entry = entries[kernel]
             entry.setdefault("paths", {})[path] = fig

@@ -59,6 +59,7 @@ from myrtlespeech_tpu_torch.ops.cuda.rnnt_kernel import (rnnt_lattice,
                                                          rnnt_loss_lattice)
 from myrtlespeech_tpu_torch.ops.rnnt import rnnt_loss_fused, weighted_reduce
 from myrtlespeech_tpu_torch.ops.specaugment import spec_augment
+from myrtlespeech_tpu_torch.parallel.tensor import all_reduce_sum
 
 
 def vocab_size(cfg: S.SpeechToTextConfig) -> int:
@@ -79,8 +80,9 @@ def build_preprocess(steps: Tuple[S.PreProcessStepConfig, ...]) -> Callable:
     TRAIN-stage steps are skipped at eval.  The MFCC step emits log-mel
     features with ``log_mel_only`` and MFCCs (the DCT after the log)
     otherwise; context frames stack each frame's neighbours (DeepSpeech1).
-    SpecAugment draws its masks from ``gen`` (a ``torch.Generator``), which
-    a train-time call must pass.
+    SpecAugment draws its masks from ``gen`` (a ``torch.Generator``, or a
+    ``parallel/tensor.py::BatchShard`` under data parallelism), which a
+    train-time call must pass.
     """
 
     def apply(wav: torch.Tensor, wav_lens: torch.Tensor, train: bool = False,
@@ -508,10 +510,21 @@ def build_lr_schedule(cfg: S.TrainConfig, steps_per_epoch: int
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(sum(t^2))`` over all the tensors, in fp32, on their device."""
+def global_norm(tensors: Iterable[torch.Tensor],
+                sharded: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """``sqrt(sum(t^2))`` over all the tensors, in fp32, on their device.
+
+    Under tensor parallelism (``group``, the model group) the tensors
+    flagged in ``sharded`` are this rank's column shards: their squares are
+    summed over the group, and each replicated tensor counts once."""
     norms = [torch.linalg.vector_norm(t.float()) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    mask = torch.tensor(sharded, device=sq.device)
+    return torch.sqrt(all_reduce_sum((sq * mask).sum(), group)
+                      + (sq * ~mask).sum())
 
 
 class Optimizer:
@@ -523,7 +536,9 @@ class Optimizer:
     ``torch.optim.SGD``, whose ``weight_decay`` adds ``wd * p`` to the
     gradient before the update (coupled L2, optax's ``add_decayed_weights``
     before the optimizer), with the learning rate ``schedule(step)``.
-    Nothing reads the gradients back to the host.
+    Nothing reads the gradients back to the host.  Under tensor
+    parallelism :meth:`shard` names the parameters that are column shards,
+    so that the norm counts each shard once (:func:`global_norm`).
     """
 
     def __init__(self, params: List[torch.nn.Parameter],
@@ -534,6 +549,13 @@ class Optimizer:
         self.inner = inner
         self.schedule = schedule
         self.clip_norm = clip_norm
+        self.sharded: Optional[List[bool]] = None
+        self.shard_group = None
+
+    def shard(self, sharded: List[bool], group) -> None:
+        """``sharded[i]``: parameter ``i`` is a column shard over ``group``
+        (the model group)."""
+        self.sharded, self.shard_group = list(sharded), group
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
@@ -542,8 +564,11 @@ class Optimizer:
     def step(self, step: int) -> torch.Tensor:
         """Update the parameters from their gradients; returns the global
         norm of the unclipped gradients (fp32, on the device)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = global_norm(grads)
+        have = [i for i, p in enumerate(self.params) if p.grad is not None]
+        grads = [self.params[i].grad for i in have]
+        norm = global_norm(grads, self.sharded and [self.sharded[i]
+                                                    for i in have],
+                           self.shard_group)
         if self.clip_norm is not None:
             keep = norm < self.clip_norm
             for g in grads:

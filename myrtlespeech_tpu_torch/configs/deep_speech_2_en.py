@@ -2,7 +2,8 @@
 ``configs/deep_speech_2_en.py`` (BASELINE.json config 2).
 
 2 masked 2-D convs -> 5x BiLSTM(800) with masked BatchNorm between them ->
-FC(1600) -> CTC (beam decode, not ported yet).  Built from the port's own
+FC(1600) -> CTC, decoded by the prefix beam search (W=16,
+``decoding/ctc_beam.py``).  Built from the port's own
 schema; ``tests/test_torch_weights.py`` holds it equal to the JAX package's
 config field by field.
 """

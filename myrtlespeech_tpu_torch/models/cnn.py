@@ -11,7 +11,9 @@ The convolution is ``torch.nn.functional.conv2d`` (cuDNN on the card): the
 JAX package computes it with XLA's ``nn.Conv``, outside any Pallas kernel,
 as a library product like ``x @ W_ih``.  Its kernel parameter keeps Flax's
 ``(kt, kf, in, out)`` layout and is permuted to ``(out, in, kt, kf)`` at the
-call, so that the weight bridge stays a rename.  The image runs NCHW inside
+call, so that the weight bridge stays a rename.  Under tensor parallelism a
+sharded kernel convolves column-parallel over the output channels
+(``parallel/tensor.py``).  The image runs NCHW inside
 the call and is permuted back to ``(B, T, F, C)`` before any flatten: Flax
 flattens with C fastest, and the BatchNorm's ``(F * C,)`` parameters and the
 first LSTM's ``w_ih`` rows follow that order.
@@ -28,6 +30,7 @@ from myrtlespeech_tpu_torch.config.schema import Conv2dConfig, PaddingMode
 from myrtlespeech_tpu_torch.models.activations import apply_activation
 from myrtlespeech_tpu_torch.models.normalization import MaskedBatchNorm
 from myrtlespeech_tpu_torch.ops import masking
+from myrtlespeech_tpu_torch.parallel.tensor import columns, shard_mesh
 
 
 def _pad_amount(mode: PaddingMode, kernel: int) -> int:
@@ -68,8 +71,16 @@ class Conv(nn.Module):
         F')``."""
         w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return nn.functional.conv2d(x.to(self.dtype), w, b,
-                                    stride=self.stride, padding=self.padding)
+        if shard_mesh(self, "kernel") is None:
+            return nn.functional.conv2d(x.to(self.dtype), w, b,
+                                        stride=self.stride,
+                                        padding=self.padding)
+        # Column-parallel over the output channels; the replicated bias
+        # after the gather.
+        y = columns(self, "kernel", lambda x_, w_: nn.functional.conv2d(
+            x_, w_, None, stride=self.stride, padding=self.padding),
+            x.to(self.dtype), w, dim=1)
+        return y if b is None else y + b[:, None, None]
 
 
 class MaskedConv2d(nn.Module):

@@ -4,7 +4,9 @@
 final layer to ``out_features`` with none; at train time, dropout at
 ``cfg.dropout`` after each hidden activation (``ops/dropout.py``).
 Parameters are fp32 and keep Flax's layout and names: ``Dense_{i}.kernel
-(in, out)`` and ``Dense_{i}.bias``; products run in the compute dtype.
+(in, out)`` and ``Dense_{i}.bias``; products run in the compute dtype.  Under
+tensor parallelism a sharded kernel's product is column-parallel
+(``parallel/tensor.py``) and the replicated bias is added after the gather.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 from myrtlespeech_tpu_torch.config.schema import FullyConnectedConfig
 from myrtlespeech_tpu_torch.models.activations import apply_activation
 from myrtlespeech_tpu_torch.ops.dropout import dropout
+from myrtlespeech_tpu_torch.parallel.tensor import columns
 
 
 class Dense(nn.Module):
@@ -30,8 +33,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) \
-            + self.bias.to(self.dtype)
+        y = columns(self, "kernel", torch.matmul, x.to(self.dtype),
+                    self.kernel.to(self.dtype))
+        return y + self.bias.to(self.dtype)
 
 
 class FullyConnected(nn.Module):

@@ -8,7 +8,11 @@ cast to the compute dtype at the end.  ``torch.nn.BatchNorm1d`` would count
 the padded frames and keep an unbiased running variance, so it is not used.
 
 ``scale`` and ``bias`` are parameters; ``mean`` and ``var`` are buffers,
-named as the JAX package's ``batch_stats`` leaves.
+named as the JAX package's ``batch_stats`` leaves.  Under data parallelism
+the masked sums and the count are summed over the data group
+(``parallel/tensor.py::sum_over_data``), so the statistics are the global
+batch's, as GSPMD computes them, and the running ones move alike on every
+rank.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 
 from myrtlespeech_tpu_torch.ops.masking import sequence_mask
+from myrtlespeech_tpu_torch.parallel.tensor import sum_over_data
 
 
 class MaskedBatchNorm(nn.Module):
@@ -40,9 +45,12 @@ class MaskedBatchNorm(nn.Module):
         if train:
             m = sequence_mask(lengths.to(x.device), x.shape[1],
                               torch.float32)[:, :, None]
-            n = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dim=(0, 1)) / n
-            var = (((xf - mean) * m) ** 2).sum(dim=(0, 1)) / n
+            sums = sum_over_data(self, torch.cat([(xf * m).sum(dim=(0, 1)),
+                                                  m.sum()[None]]))
+            n = torch.clamp(sums[-1], min=1.0)
+            mean = sums[:-1] / n
+            var = sum_over_data(self, (((xf - mean) * m) ** 2).sum(
+                dim=(0, 1))) / n
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum)
                                                    * mean)

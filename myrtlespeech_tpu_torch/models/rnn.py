@@ -18,6 +18,13 @@ between stacked layers, not after the last one: ``MaskedBatchNorm_{i}``
 after layer ``i``, as the JAX package names them.  At train time dropout at
 ``cfg.dropout`` follows it, also between stacked layers and not after the
 last (``ops/dropout.py``); both follow every cell's layers alike.
+
+Under tensor parallelism (``parallel/sharding.py``) ``w_ih`` is a column
+shard whose product runs column-parallel, and ``w_hh`` and ``_b`` are
+gathered whole once a layer call (``parallel/tensor.py``), so that an LSTM
+layer keeps K1 and K2 on the whole matrix: TP splits the weights' storage
+and the input projections, not the recurrence.  (The JAX package leaves its
+Pallas LSTM under TP because a ``pallas_call`` is opaque to GSPMD.)
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from myrtlespeech_tpu_torch.config.schema import RNNConfig, RNNType
 from myrtlespeech_tpu_torch.models.normalization import MaskedBatchNorm
 from myrtlespeech_tpu_torch.ops import rnn as rnn_ops
 from myrtlespeech_tpu_torch.ops.dropout import dropout
+from myrtlespeech_tpu_torch.parallel.tensor import full_columns, shard_mesh
 
 GATES = {RNNType.LSTM: 4, RNNType.GRU: 3, RNNType.BASIC_RNN: 1,
          RNNType.HARD_LSTM: 4}
@@ -98,7 +106,7 @@ class RNN(nn.Module):
                 bn = getattr(self, f"MaskedBatchNorm_{layer}")
                 y = bn(y.transpose(0, 1), lengths, train).transpose(0, 1)
             if layer < c.num_layers - 1:
-                y = dropout(y, c.dropout, train, gen)
+                y = dropout(y, c.dropout, train, gen, batch_dim=1)
         return y.transpose(0, 1), lengths, final_states
 
     def _scan(self, name: str, y: torch.Tensor, lengths: torch.Tensor,
@@ -106,9 +114,12 @@ class RNN(nn.Module):
         """One direction of one layer through its cell's recurrence."""
         c = self.cfg
         w_ih = getattr(self, f"{name}_w_ih")
-        w_hh = getattr(self, f"{name}_w_hh")
-        b = getattr(self, f"{name}_b") if c.bias else None
-        kw = dict(reverse=reverse, compute_dtype=self.dtype)
+        w_hh = full_columns(self, f"{name}_w_hh",
+                            getattr(self, f"{name}_w_hh"))
+        b = full_columns(self, f"{name}_b", getattr(self, f"{name}_b")) \
+            if c.bias else None
+        kw = dict(reverse=reverse, compute_dtype=self.dtype,
+                  mesh=shard_mesh(self, f"{name}_w_ih"))
         if c.rnn_type is RNNType.LSTM:
             return rnn_ops.lstm_scan(y, lengths, w_ih, w_hh, b, h0c0=init,
                                      **kw)

@@ -11,7 +11,9 @@ training path, and ``joint_project`` feeds the joint-tail kernels (K5, K6).
 At train time the training path drops out (``ops/dropout.py``) between RNN
 layers, in the joint's tail after each hidden activation, and whole
 prediction-net embeddings (``embedding_dropout``), each mask drawn from the
-``gen`` passed in; the decoders never draw.
+``gen`` passed in; the decoders never draw.  Under tensor parallelism the
+embedding lookup, the joint's first layer and every sharded Dense run
+column-parallel (``parallel/tensor.py``).
 
 Parameter names and layouts follow Flax, so the JAX package's weights map
 one to one (``weights.py``): ``enc_rnn1.*``, ``enc_rnn2.*``,
@@ -34,6 +36,7 @@ from myrtlespeech_tpu_torch.models.rnn import RNN
 from myrtlespeech_tpu_torch.ops import dropout as dropout_ops
 from myrtlespeech_tpu_torch.ops import masking
 from myrtlespeech_tpu_torch.ops.rnn import LSTMState
+from myrtlespeech_tpu_torch.parallel.tensor import columns, full_columns
 
 
 def time_reduce(x: torch.Tensor, lengths: torch.Tensor, factor: int):
@@ -57,7 +60,9 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num, features))
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.embedding.to(self.dtype)[idx]
+        # A column shard's rows gathered: the lookup is column-parallel.
+        return full_columns(self, "embedding",
+                            self.embedding.to(self.dtype)[idx])
 
 
 class RNNTJoint(nn.Module):
@@ -90,11 +95,13 @@ class RNNTJoint(nn.Module):
 
     def project_f(self, f: torch.Tensor) -> torch.Tensor:
         f = apply_activation(self.cfg.activation, f).to(self.dtype)
-        return f @ self.kernel.to(self.dtype)[:self.h_enc]
+        return columns(self, "kernel", torch.matmul, f,
+                       self.kernel.to(self.dtype)[:self.h_enc])
 
     def project_g(self, g: torch.Tensor) -> torch.Tensor:
         g = apply_activation(self.cfg.activation, g).to(self.dtype)
-        return g @ self.kernel.to(self.dtype)[self.h_enc:] \
+        return columns(self, "kernel", torch.matmul, g,
+                       self.kernel.to(self.dtype)[self.h_enc:]) \
             + self.bias.to(self.dtype)
 
     def from_fp(self, fp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -109,7 +116,7 @@ class RNNTJoint(nn.Module):
         c = self.cfg.fc
         if self.rest is None or not train or c.dropout == 0.0:
             return None
-        return [dropout_ops.draw_keep((*shape, c.hidden_size),
+        return [dropout_ops.draw_rows((*shape, c.hidden_size),
                                       1.0 - c.dropout, gen)
                 for _ in range(c.num_hidden_layers)]
 

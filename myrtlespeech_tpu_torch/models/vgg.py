@@ -29,6 +29,7 @@ from myrtlespeech_tpu_torch.config.schema import (Conv2dConfig, PaddingMode,
                                                   VGGCfg, VGGConfig)
 from myrtlespeech_tpu_torch.models.cnn import Conv
 from myrtlespeech_tpu_torch.ops import masking
+from myrtlespeech_tpu_torch.parallel.tensor import sum_over_data
 
 # torchvision cfgs: ints = conv out-channels, "M" = 2x2 max-pool.
 _CFGS = {
@@ -60,7 +61,9 @@ class BatchNorm(nn.Module):
     ones by ``ra = 0.99 ra + 0.01 batch``.  Otherwise the running ones
     normalise.  ``(x - mean) * rsqrt(var + eps) * scale + bias`` runs in
     fp32 and is cast to the compute dtype.  ``torch.nn.BatchNorm2d`` keeps
-    an unbiased running variance, so it is not used.
+    an unbiased running variance, so it is not used.  Under data
+    parallelism both sums are summed over the data group, so the statistics
+    are the global batch's.
     """
 
     def __init__(self, features: int, momentum: float = 0.99,
@@ -77,8 +80,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            mesh = getattr(self, "dist_mesh", None)
+            if mesh is None or mesh.data == 1:
+                mean = xf.mean(dim=(0, 2, 3))
+                mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                n = xf.numel() // xf.shape[1] * mesh.data
+                mean, mean2 = (sum_over_data(self, torch.stack(
+                    [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+                    / n).unbind(0)
             var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum)

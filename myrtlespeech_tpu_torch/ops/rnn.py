@@ -14,6 +14,10 @@ vanilla tanh RNN.
   them.  Their input projection stays fp32, and each product ``h @ W_hh``
   rounds both operands to the compute dtype and multiplies in fp32, as
   ``preferred_element_type=float32`` does.
+- Under tensor parallelism (``mesh``) ``w_ih`` is this rank's column shard
+  and the input projection runs column-parallel
+  (``parallel/tensor.py::column_parallel``); ``w_hh`` and the biases come in
+  whole, gathered by the caller (``models/rnn.py``).
 - Variable lengths are handled by masking, not packing: padded steps run,
   but the state is frozen on them, so the final state is the state at
   ``t = len - 1``, and outputs there are zero.
@@ -35,6 +39,8 @@ import torch
 
 from myrtlespeech_tpu_torch.ops.cuda.lstm_kernel import LSTMFunction
 from myrtlespeech_tpu_torch.ops.masking import sequence_mask
+from myrtlespeech_tpu_torch.parallel.mesh import Mesh
+from myrtlespeech_tpu_torch.parallel.tensor import column_parallel
 
 
 class LSTMState(NamedTuple):
@@ -56,17 +62,26 @@ def reverse_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 0, src)
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor, mesh: Optional[Mesh]
+            ) -> torch.Tensor:
+    """``x @ w``, column-parallel over ``mesh``'s model group when given."""
+    if mesh is None:
+        return x @ w
+    return column_parallel(torch.matmul, x, w, mesh)
+
+
 def lstm_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
               w_hh: torch.Tensor, b: Optional[torch.Tensor],
               h0c0: Optional[LSTMState] = None, reverse: bool = False,
-              compute_dtype: torch.dtype = torch.bfloat16
+              compute_dtype: torch.dtype = torch.bfloat16,
+              mesh: Optional[Mesh] = None
               ) -> Tuple[torch.Tensor, LSTMState]:
     """Run an LSTM over a time-major padded batch.
 
     ``x (T, B, F)``, ``lengths (B,)``, ``w_ih (F, 4H)``, ``w_hh (H, 4H)``,
     ``b (4H,)`` or None; ``h0c0`` fp32, zeros if None.  Returns outputs
     ``(T, B, H)`` in the compute dtype (zero past each length) and the final
-    fp32 state.
+    fp32 state.  With ``mesh``, ``w_ih`` is this rank's column shard.
     """
     T, B, F = x.shape
     H = w_hh.shape[0]
@@ -76,8 +91,8 @@ def lstm_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
                          c=torch.zeros((B, H), device=dev))
     if reverse:
         x = reverse_sequences(x, lengths)
-    x_proj = (x.reshape(T * B, F).to(compute_dtype)
-              @ w_ih.to(compute_dtype)).reshape(T, B, 4 * H)
+    x_proj = _matmul(x.reshape(T * B, F).to(compute_dtype),
+                     w_ih.to(compute_dtype), mesh).reshape(T, B, 4 * H)
     valid = sequence_mask(lengths.to(dev), T, torch.float32).t().contiguous()
     ys, hT, cT = LSTMFunction.apply(
         x_proj, valid, w_hh, h0c0.h.float().contiguous(),
@@ -88,12 +103,14 @@ def lstm_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
 
 
 def _project(x: torch.Tensor, w_ih: torch.Tensor,
-             compute_dtype: torch.dtype) -> torch.Tensor:
+             compute_dtype: torch.dtype, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
     """``x (T, B, F) @ w_ih (F, G)`` as one product over all steps, both
-    operands rounded to the compute dtype, the product fp32: ``(T, B, G)``."""
+    operands rounded to the compute dtype, the product fp32: ``(T, B, G)``
+    (column-parallel over ``mesh``)."""
     T, B, F = x.shape
-    return (x.reshape(T * B, F).to(compute_dtype).float()
-            @ w_ih.to(compute_dtype).float()).reshape(T, B, -1)
+    return _matmul(x.reshape(T * B, F).to(compute_dtype).float(),
+                   w_ih.to(compute_dtype).float(), mesh).reshape(T, B, -1)
 
 
 def _hidden(h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -151,7 +168,8 @@ def hard_lstm_scan(x: torch.Tensor, lengths: torch.Tensor,
                    w_ih: torch.Tensor, w_hh: torch.Tensor,
                    b: Optional[torch.Tensor],
                    h0c0: Optional[LSTMState] = None, reverse: bool = False,
-                   compute_dtype: torch.dtype = torch.bfloat16
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   mesh: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, LSTMState]:
     """The hard LSTM (JAX ``lstm_scan(hard=True)``): the LSTM's step with
     :func:`hard_sigmoid` and :func:`hard_tanh`, the bias added inside the
@@ -164,7 +182,7 @@ def hard_lstm_scan(x: torch.Tensor, lengths: torch.Tensor,
                          c=torch.zeros((B, H), device=dev))
     if reverse:
         x = reverse_sequences(x, lengths)
-    x_proj = _project(x, w_ih, compute_dtype)
+    x_proj = _project(x, w_ih, compute_dtype, mesh)
     w = w_hh.to(compute_dtype).float()
     bias = None if b is None else b.float()
 
@@ -186,7 +204,8 @@ def gru_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
              w_hh: torch.Tensor, b_ih: Optional[torch.Tensor],
              b_hh: Optional[torch.Tensor], h0: Optional[torch.Tensor] = None,
              reverse: bool = False,
-             compute_dtype: torch.dtype = torch.bfloat16
+             compute_dtype: torch.dtype = torch.bfloat16,
+             mesh: Optional[Mesh] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GRU, gate order ``r, z, n`` (JAX ``gru_scan``): ``w_ih (F, 3H)``,
     ``w_hh (H, 3H)``, ``b_ih`` added to the fp32 input projection, ``b_hh``
@@ -199,7 +218,7 @@ def gru_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
         h0 = torch.zeros((B, H), device=x.device)
     if reverse:
         x = reverse_sequences(x, lengths)
-    x_proj = _project(x, w_ih, compute_dtype)
+    x_proj = _project(x, w_ih, compute_dtype, mesh)
     if b_ih is not None:
         x_proj = x_proj + b_ih.float()
     w = w_hh.to(compute_dtype).float()
@@ -220,7 +239,8 @@ def gru_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
 def rnn_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
              w_hh: torch.Tensor, b: Optional[torch.Tensor],
              h0: Optional[torch.Tensor] = None, reverse: bool = False,
-             compute_dtype: torch.dtype = torch.bfloat16
+             compute_dtype: torch.dtype = torch.bfloat16,
+             mesh: Optional[Mesh] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Vanilla tanh RNN (JAX ``rnn_scan``): ``h = tanh(x W_ih + b + h
     W_hh)``, the bias added to the fp32 input projection.  Returns as
@@ -231,7 +251,7 @@ def rnn_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
         h0 = torch.zeros((B, H), device=x.device)
     if reverse:
         x = reverse_sequences(x, lengths)
-    x_proj = _project(x, w_ih, compute_dtype)
+    x_proj = _project(x, w_ih, compute_dtype, mesh)
     if b is not None:
         x_proj = x_proj + b.float()
     w = w_hh.to(compute_dtype).float()

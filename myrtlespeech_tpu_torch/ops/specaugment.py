@@ -15,7 +15,10 @@ give different numbers from the same seed):
 
 The raw integers are drawn on the CPU generator and moved to the features'
 device, where the per-row arithmetic runs, so the draw needs no copy of
-``frame_lens`` back to the host.
+``frame_lens`` back to the host.  Under data parallelism the generator comes
+wrapped in a ``parallel/tensor.py::BatchShard``: :func:`spec_augment` then
+gathers the global batch's ``frame_lens``, draws for the global batch and
+keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from myrtlespeech_tpu_torch.parallel.tensor import BatchShard
 
 
 class SpecAugmentDraws(NamedTuple):
@@ -76,9 +81,16 @@ def apply_spec_augment(feats: torch.Tensor, draws: SpecAugmentDraws
     return out * keep_t[:, :, None].to(feats.dtype)
 
 
-def spec_augment(gen: torch.Generator, feats: torch.Tensor,
-                 frame_lens: torch.Tensor, **kwargs) -> torch.Tensor:
-    """Draw and apply: the port of ``spec_augment``; ``kwargs`` as
+def spec_augment(gen, feats: torch.Tensor, frame_lens: torch.Tensor,
+                 **kwargs) -> torch.Tensor:
+    """Draw and apply: the port of ``spec_augment``; ``gen`` a
+    ``torch.Generator`` or a ``BatchShard``, ``kwargs`` as
     :func:`draw_spec_augment`."""
-    return apply_spec_augment(
-        feats, draw_spec_augment(gen, frame_lens, feats.shape[2], **kwargs))
+    if not isinstance(gen, BatchShard):
+        return apply_spec_augment(
+            feats, draw_spec_augment(gen, frame_lens, feats.shape[2],
+                                     **kwargs))
+    draws = draw_spec_augment(gen.gen, gen.gather_rows(frame_lens),
+                              feats.shape[2], **kwargs)
+    return apply_spec_augment(feats,
+                              SpecAugmentDraws(*map(gen.rows, draws)))

@@ -1,11 +1,18 @@
 """Callbacks of the training loop: the port of ``myrtlespeech_tpu/run/callbacks.py``.
 
 The same hooks, the same handler state and the same reports as the JAX
-package's (fastai-style ``Callback``/``CallbackHandler``), for one process:
-the JAX package's sums across processes (``multihost_utils``) wait for the
-multi-card item of ``ROADMAP.md`` Queue 1 (item 7).  The train step runs
-between ``on_batch_begin`` and ``on_batch_end``; its metrics are tensors on
-the device, which a callback reads with ``float`` (a wait for the step).
+package's (fastai-style ``Callback``/``CallbackHandler``).  The train step
+runs between ``on_batch_begin`` and ``on_batch_end``; its metrics are
+tensors on the device, which a callback reads with ``float`` (a wait for the
+step).
+
+In a run of several ranks ``fit`` puts the rank's mesh in the handler's
+state (``ts["mesh"]``).  ``ReportMeanBatchLoss`` and ``ReportDecoderWER``
+then sum their statistics over the data group only (the ranks of one model
+group saw the same rows: summing over every rank would count each shard
+``model`` times), and every rank joins even with an empty shard.  The
+callbacks that write (``LogReports``, ``CSVLogger``, ``TensorBoardLogger``,
+``ProfilerCallback``: ``lead_only``) run on rank 0 alone.
 
 The port adds to the JAX package's reports, none of them a scalar (so the
 CSV and TensorBoard files keep the JAX package's columns):
@@ -25,6 +32,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from myrtlespeech_tpu_torch.parallel.mesh import all_reduce_host
 
 
 class Stage(enum.Enum):
@@ -48,7 +57,10 @@ class Callback:
 
     ``ts`` is the handler's mutable state dict, threaded through all
     callbacks: step, epoch, stage, metrics, stop flags, reports...
+    ``lead_only``: runs on rank 0 alone in a run of several ranks.
     """
+
+    lead_only = False
 
     def on_train_begin(self, ts: Dict[str, Any]) -> None: ...
     def on_train_end(self, ts: Dict[str, Any]) -> None: ...
@@ -71,8 +83,11 @@ class CallbackHandler:
         }
 
     def _fire(self, hook: str) -> None:
+        mesh = self.state.get("mesh")
+        lead = mesh is None or mesh.rank == 0
         for cb in self.callbacks:
-            getattr(cb, hook)(self.state)
+            if lead or not cb.lead_only:
+                getattr(cb, hook)(self.state)
 
     def on_train_begin(self): self._fire("on_train_begin")
     def on_train_end(self): self._fire("on_train_end")
@@ -114,7 +129,9 @@ class ReportMeanBatchLoss(Callback):
     """Running mean loss per stage, reported at stage end into
     ``ts['reports']['{stage}_mean_loss']``.  Each batch's loss (already
     masked to its real rows) is weighted by its real-row count, so the mean
-    is the corpus's whatever the padded remainder chunks."""
+    is the corpus's whatever the padded remainder chunks.  Under a mesh the
+    ``(sum, weight)`` pair is summed over the data group (``texts`` holds
+    the rank's real rows), every rank joining."""
 
     def on_stage_begin(self, ts):
         self._sum, self._n = 0.0, 0.0
@@ -134,14 +151,23 @@ class ReportMeanBatchLoss(Callback):
         self._n += w
 
     def on_stage_end(self, ts):
+        s, n = all_reduce_host([self._sum, self._n], _data_group(ts))
         ts.setdefault("reports", {})[
-            f"{ts['stage'].value}_mean_loss"] = self._sum / max(self._n,
-                                                                1e-12)
+            f"{ts['stage'].value}_mean_loss"] = s / max(n, 1e-12)
+
+
+def _data_group(ts):
+    """The data group of the run's mesh, or None."""
+    mesh = ts.get("mesh")
+    return None if mesh is None else mesh.data_group
 
 
 class ReportDecoderWER(Callback):
     """Accumulates the eval step's decoded transcripts and reports ``wer``
-    and ``cer`` at the end of the EVAL stage (``decoding/wer.py``)."""
+    and ``cer`` at the end of the EVAL stage (``decoding/wer.py``).  Under a
+    mesh the edit and length counts are summed over the data group, every
+    rank joining even with no transcript (a rank that skipped the sum
+    would leave the others waiting)."""
 
     def __init__(self, alphabet, log_transcripts: int = 0):
         self.alphabet = alphabet
@@ -168,11 +194,15 @@ class ReportDecoderWER(Callback):
                 [t for t in toks[i, :lens[i]]]))
 
     def on_stage_end(self, ts):
-        if ts["stage"] is not Stage.EVAL or not self.refs:
+        group = _data_group(ts)
+        if ts["stage"] is not Stage.EVAL or (not self.refs and group is None):
             return
         from myrtlespeech_tpu_torch.decoding.wer import cer_counts, wer_counts
         wd, wt = wer_counts(self.refs, self.hyps)
         cd, ct = cer_counts(self.refs, self.hyps)
+        wd, wt, cd, ct = all_reduce_host([wd, wt, cd, ct], group)
+        if wt == 0 and ct == 0:
+            return  # no rank decoded anything this stage
         r = ts.setdefault("reports", {})
         r["wer"] = wd / max(wt, 1)
         r["cer"] = cd / max(ct, 1)
@@ -185,6 +215,8 @@ class CSVLogger(Callback):
     """Per-batch metric rows in ``path`` (``step, epoch, stage`` and the
     step's scalar metrics), and each epoch's reports in a sibling
     ``*_epochs.csv``: the JAX package's files and columns."""
+
+    lead_only = True
 
     def __init__(self, path: str):
         self.path = path
@@ -277,6 +309,8 @@ class TensorBoardLogger(Callback):
     """Train metrics and epoch reports as TensorBoard scalars (through
     ``tensorboardX``; does nothing where it is not installed)."""
 
+    lead_only = True
+
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self.writer = None
@@ -322,6 +356,8 @@ class StopEpochAfter(Callback):
 class LogReports(Callback):
     """Prints each epoch's scalar reports as one JSON line."""
 
+    lead_only = True
+
     def on_epoch_end(self, ts):
         r = {k: v for k, v in ts.get("reports", {}).items()
              if isinstance(v, (int, float))}
@@ -335,6 +371,8 @@ class ProfilerCallback(Callback):
     (``tensorboard_trace_handler``; ``utils/trace.py`` reads it), the CPU and,
     where there is one, the card.  ``wall_ms`` is the window's host time, the
     card synchronised at both ends."""
+
+    lead_only = True
 
     def __init__(self, log_dir: str, start_step: int = 10,
                  num_steps: int = 5):
@@ -410,7 +448,8 @@ class ThroughputMonitor(Callback):
         if batch is not None and "wav_lens" in batch:
             lens = np.asarray(batch["wav_lens"])
             # Real rows only: the remainder fill repeats the last utterance.
-            n_real = batch.get("n_real")
+            # (This rank's real rows, under a mesh.)
+            n_real = batch.get("n_real_local", batch.get("n_real"))
             if n_real is not None:
                 lens = lens[:int(n_real)]
             self._audio_s += float(np.sum(lens)) / self.sample_rate

@@ -13,10 +13,15 @@ A checkpoint holds the whole ``TrainState`` and the loader's cursor:
 
 Each is one ``torch.save`` file, ``<dir>/ckpt_<step>.pt``, written to a
 temporary file and renamed, so a crash never leaves half a checkpoint; the
-newest ``max_to_keep`` are kept.  The JAX package's orbax directories do
-not load here.  The crossing between the packages is the npz of trained
-weights (:func:`save_params_npz`, :func:`load_params_npz`): '/'-joined Flax
-paths, every parameter in bf16 stored as uint16 under ``::bf16``.
+newest ``max_to_keep`` are kept.  A run of several ranks writes it in the
+one-process layout: every rank gathers its model group's shards of the
+parameters and of the optimizer's moments (``parallel/sharding.py``), rank 0
+alone writes, and every rank restores the whole file and takes its shard, so
+a checkpoint moves between one process and any mesh.  The JAX package's
+orbax directories do not load here.  The crossing between the packages is
+the npz of trained weights (:func:`save_params_npz`,
+:func:`load_params_npz`): '/'-joined Flax paths, every parameter in bf16
+stored as uint16 under ``::bf16``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import numpy as np
 import torch
 
 from myrtlespeech_tpu_torch.config import schema as S
+from myrtlespeech_tpu_torch.parallel import sharding
+from myrtlespeech_tpu_torch.parallel.mesh import broadcast_host
 from myrtlespeech_tpu_torch.run.callbacks import Callback, Stage
 from myrtlespeech_tpu_torch.run.train import TrainState
 from myrtlespeech_tpu_torch.weights import flat_from_params, params_from_npz
@@ -59,26 +66,41 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, *, epoch: int = 0,
              batch_in_epoch: int = 0) -> None:
-        """Save ``state`` and the cursor at which a resumed run continues."""
+        """Save ``state`` and the cursor at which a resumed run continues.
+        Under a mesh every rank must call it; rank 0 writes."""
         t0 = time.perf_counter()
-        payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.inner.state_dict(),
-            "step": int(state.step),
-            "gen": state.gen.get_state(),
-            "dropout_gen": state.dropout_gen.get_state(),
-            "dropout_gen_device": state.dropout_gen.device.type,
-            "loader": {"epoch": int(epoch),
-                       "batch_in_epoch": int(batch_in_epoch)},
-        }
+        model, optimizer = state.model.state_dict(), \
+            state.optimizer.inner.state_dict()
+        mesh = state.mesh
+        if mesh is not None and mesh.model > 1:
+            names = [n for n, _ in state.model.named_parameters()]
+            model = sharding.gather_params(model, state.specs, mesh)
+            optimizer = sharding.gather_optimizer_state(optimizer, names,
+                                                        state.specs, mesh)
+        nbytes = 0
         path = self._path(step)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        if mesh is None or mesh.rank == 0:
+            payload = {
+                "model": model,
+                "optimizer": optimizer,
+                "step": int(state.step),
+                "gen": state.gen.get_state(),
+                "dropout_gen": state.dropout_gen.get_state(),
+                "dropout_gen_device": state.dropout_gen.device.type,
+                "loader": {"epoch": int(epoch),
+                           "batch_in_epoch": int(batch_in_epoch)},
+            }
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            nbytes = os.path.getsize(path)
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        if mesh is not None and mesh.data_group is not None:
+            # Every rank waits for the file and learns its size.
+            nbytes = int(broadcast_host(nbytes))
         self.last_save = {"ms": 1e3 * (time.perf_counter() - t0),
-                          "bytes": os.path.getsize(path)}
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+                          "bytes": nbytes}
 
     def wait(self) -> None:
         """Saves are synchronous: nothing to wait for (the JAX package's
@@ -108,7 +130,8 @@ class CheckpointManager:
         """Weights only (a warm start): the model's parameters and BatchNorm
         statistics from the checkpoint; ``target``'s fresh optimizer, step
         and generators are kept, so the run starts its own LR schedule."""
-        target.model.load_state_dict(self._load(step)["model"])
+        target.model.load_state_dict(_model_shards(self._load(step)["model"],
+                                                   target))
         return target
 
     def restore_with_cursor(self, target: TrainState,
@@ -117,12 +140,26 @@ class CheckpointManager:
         """Loads the checkpoint into ``target`` (a state of the same model,
         e.g. ``train.init_state``'s): ``(state, {"epoch", "batch_in_epoch"})``."""
         payload = self._load(step)
-        target.model.load_state_dict(payload["model"])
-        target.optimizer.inner.load_state_dict(payload["optimizer"])
+        target.model.load_state_dict(_model_shards(payload["model"], target))
+        optimizer = payload["optimizer"]
+        if target.specs is not None:
+            optimizer = sharding.shard_optimizer_state(
+                optimizer, [n for n, _ in target.model.named_parameters()],
+                target.specs, target.mesh)
+        target.optimizer.inner.load_state_dict(optimizer)
         target.step = payload["step"]
         target.gen.set_state(payload["gen"])
         _restore_dropout_gen(target.dropout_gen, payload)
         return target, dict(payload["loader"])
+
+
+def _model_shards(model: Mapping[str, torch.Tensor], target: TrainState
+                  ) -> Mapping[str, torch.Tensor]:
+    """A checkpoint's (one-process) model state_dict as ``target``'s rank
+    holds it."""
+    if target.specs is None:
+        return model
+    return sharding.shard_params(model, target.specs, target.mesh)
 
 
 def _restore_dropout_gen(gen: torch.Generator, payload: dict) -> None:
@@ -183,6 +220,12 @@ class CheckpointCallback(Callback):
         self.manager = manager
         self.every_epochs = every_epochs
         self._cursor = (0, 0)  # (epoch, batch_in_epoch) to resume at
+        # The step last saved (or found at the start), which every rank of
+        # a mesh knows alike: each save is a collective.
+        self._saved: Optional[int] = None
+
+    def on_train_begin(self, ts):
+        self._saved = self.manager.latest_step()
 
     def on_stage_end(self, ts):
         if ts["stage"] is not Stage.TRAIN:
@@ -195,6 +238,7 @@ class CheckpointCallback(Callback):
     def _save(self, ts, state) -> None:
         self.manager.save(int(state.step), state, epoch=self._cursor[0],
                           batch_in_epoch=self._cursor[1])
+        self._saved = int(state.step)
         r = ts.setdefault("reports", {})
         r["checkpoint_save_ms"] = self.manager.last_save["ms"]
         r["checkpoint_bytes"] = self.manager.last_save["bytes"]
@@ -206,7 +250,6 @@ class CheckpointCallback(Callback):
 
     def on_train_end(self, ts):
         state = ts.get("train_state")
-        if state is not None \
-                and self.manager.latest_step() != int(state.step):
+        if state is not None and self._saved != int(state.step):
             self._save(ts, state)
         self.manager.wait()

@@ -386,7 +386,8 @@ def test_fit_refuses_tensor_parallel_and_a_missing_card():
     cfg = tiny_ctc(PS)
     tp = build_task(PS.replace(cfg, train_config=PS.replace(
         cfg.train_config, mesh_model=2)), steps_per_epoch=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # One process cannot hold two tensor-parallel ranks.
+    with pytest.raises(ValueError, match="mesh_model=2 needs a multiple"):
         train.fit(tp, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -15,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("rnn_t_en", "synthetic_medium_rnnt", "synthetic_hard_rnnt",
            "deep_speech_2_en", "synthetic_ctc", "ctc_tiny_fake",
            "synthetic_rnnt", "rnn_t_960_beam", "synthetic_hard_rnnt_preddrop",
-           "synthetic_hard_ctc", "synthetic_hard_rnnt_ft", "deep_speech_1_en")
+           "synthetic_hard_ctc", "synthetic_hard_rnnt_ft", "deep_speech_1_en",
+           "rnn_t_960_multihost")
 
 
 def _pair(name):

@@ -77,6 +77,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import port_tools.ctc_decode_fixture\n"
         "import port_tools.serve_ab\n"
+        "import port_tools.multiproc_rehearsal\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'myrtlespeech_tpu'))\n"
         "assert not bad, bad\n"
@@ -91,14 +92,16 @@ def test_port_imports_no_jax():
         "          'configs.synthetic_hard_rnnt_preddrop',\n"
         "          'configs.synthetic_hard_ctc',\n"
         "          'configs.synthetic_hard_rnnt_ft', 'models.vgg',\n"
-        "          'models.encoder_decoder'):\n"
+        "          'models.encoder_decoder', 'parallel.mesh',\n"
+        "          'parallel.sharding', 'parallel.tensor',\n"
+        "          'configs.rnn_t_960_multihost'):\n"
         "    assert 'myrtlespeech_tpu_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('myrtlespeech_tpu_torch.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 64  # every module was imported
+    assert int(out.stdout) >= 69  # every module was imported
 
 
 def test_chip_smoke_imports_no_jax():

@@ -12,6 +12,7 @@ import pytest
 
 import configs.deep_speech_2_en as jax_ds2_en
 import configs.rnn_t_960_beam as jax_960_beam
+import configs.rnn_t_960_multihost as jax_960_multihost
 import configs.rnn_t_en as jax_rnn_t_en
 import configs.synthetic_ctc as jax_synthetic_ctc
 import configs.synthetic_medium_rnnt as jax_medium
@@ -20,6 +21,8 @@ from myrtlespeech_tpu.config import schema as JS
 from myrtlespeech_tpu_torch.config import schema as PS
 from myrtlespeech_tpu_torch.configs import deep_speech_2_en as port_ds2_en
 from myrtlespeech_tpu_torch.configs import rnn_t_960_beam as port_960_beam
+from myrtlespeech_tpu_torch.configs import \
+    rnn_t_960_multihost as port_960_multihost
 from myrtlespeech_tpu_torch.configs import rnn_t_en as port_rnn_t_en
 from myrtlespeech_tpu_torch.configs import synthetic_ctc as port_synthetic_ctc
 from myrtlespeech_tpu_torch.configs import \
@@ -85,6 +88,7 @@ def _norm(obj):
     (jax_synthetic_ctc.task_config, port_synthetic_ctc.task_config),
     (jax_synthetic_rnnt.task_config, port_synthetic_rnnt.task_config),
     (jax_960_beam.task_config, port_960_beam.task_config),
+    (jax_960_multihost.task_config, port_960_multihost.task_config),
 ])
 def test_port_configs_equal_the_jax_packages(jax_cfg, port_cfg):
     assert type(port_cfg).__module__ == PS.__name__
