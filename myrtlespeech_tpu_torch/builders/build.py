@@ -62,6 +62,10 @@ from myrtlespeech_tpu_torch.ops.specaugment import spec_augment
 from myrtlespeech_tpu_torch.parallel.tensor import all_reduce_sum
 
 
+def build_alphabet(cfg: S.SpeechToTextConfig) -> Alphabet:
+    return Alphabet(cfg.alphabet)
+
+
 def vocab_size(cfg: S.SpeechToTextConfig) -> int:
     return max(len(cfg.alphabet), cfg.loss.blank_index + 1)
 
@@ -683,7 +687,7 @@ def build_task(cfg: S.TaskConfig, steps_per_epoch: int = 1000,
     dtype = dtype or getattr(torch, cfg.train_config.compute_dtype)
     transducer = is_transducer(stt)
     task = Task(
-        cfg=cfg, alphabet=Alphabet(stt.alphabet), dtype=dtype,
+        cfg=cfg, alphabet=build_alphabet(stt), dtype=dtype,
         in_features=preprocess_out_features(stt.pre_process_steps),
         preprocess=build_preprocess(stt.pre_process_steps),
         loss_fn=build_loss(stt),

@@ -352,13 +352,13 @@ class CTCBeamDecoderConfig:
     # Path to a ``(V+1, V)`` char-bigram log-prob matrix (.npy) scored with
     # weight ``lm_alpha`` inside the device beam search (decoding/lm.py).
     # The reference's external host-side LM binary becomes a dense on-device
-    # matrix here; estimate one with tools/train_char_lm.py.
+    # matrix here; estimate one with port_tools/train_char_lm.py.
     lm_bigram_path: Optional[str] = None
     # Word-level LM weighting (the reference's per-word alpha semantics):
     # path to a word-unigram hash table (.npz, decoding/lm.py::WordLM)
     # scored ``word_lm_alpha * log p(word)`` on each separator-completed
     # word inside the device beam search.  Requires ``separator_index``.
-    # Estimate one with tools/train_char_lm.py --word-lm-out.
+    # Estimate one with port_tools/train_char_lm.py --word-lm-out.
     word_lm_path: Optional[str] = None
     word_lm_alpha: Optional[float] = None
     # TPU-native extension: expand only the frame's k best non-blank

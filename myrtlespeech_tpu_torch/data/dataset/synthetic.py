@@ -108,7 +108,7 @@ class SyntheticSpeech:
 
         The transcript is the FIRST draw of the item's rng stream (see
         ``__getitem__``), so this is exact and cheap — used for LM
-        estimation over the whole corpus (tools/accuracy_ab.py).
+        estimation over the whole corpus (port_tools/accuracy_ab.py).
         """
         rng = np.random.default_rng(
             (self.cfg.seed, self._split_salt, index))
